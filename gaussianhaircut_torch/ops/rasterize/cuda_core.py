@@ -1,0 +1,183 @@
+"""Wrappers of the two hand-written CUDA compositing kernels
+(``gaussianhaircut_torch/csrc/raster_{fwd,bwd}.cu``), the port of
+``gaussianhaircut_tpu/ops/rasterize/pallas_core.py``.
+
+Build: each source is compiled by ``nvcc -gencode arch=compute_90a,
+code=sm_90a -O3 -shared`` into its own shared library with a plain C
+interface (both compilers run at once), at first use, into
+``gaussianhaircut_torch/csrc/build/`` (listed in ``.gitignore``); the
+libraries are loaded with ``ctypes``.
+
+Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
+the plain PyTorch version from ``plain_core.py``.  Each launch adds one to
+``launches[name]``; nothing else touches the counts.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import torch
+
+from gaussianhaircut_torch.ops.rasterize import common as C
+from gaussianhaircut_torch.ops.rasterize import plain_core
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+BUILD_DIR = os.path.join(_CSRC, "build")
+SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu"}
+_HEADERS = ("raster_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+launches = {name: 0 for name in SOURCES}
+_libs: dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the compositing kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name],) + _HEADERS:
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> dict[str, str]:
+    """Compile every kernel not yet built (one nvcc per source, all started
+    together) and load them.  Returns {name: compiler output}."""
+    logs = {}
+    with _build_lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name, src in SOURCES.items():
+            if name in _libs:
+                continue
+            out = _lib_path(name)
+            if os.path.exists(out):
+                continue
+            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", out + ".tmp", os.path.join(_CSRC, src)]
+            procs[name] = (out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (out, proc) in procs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(name)
+            else:
+                os.replace(out + ".tmp", out)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                               + "\n".join(logs[n] for n in failed))
+        for name in SOURCES:
+            if name not in _libs:
+                _libs[name] = _load(name)
+    return logs
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(_lib_path(name))
+    fn = getattr(lib, name)
+    n_ptr = 4 if name == "raster_fwd" else 6
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _check_layout(payload, chunk_start, nchunks, cfg):
+    if cfg.tile_pix > 1024 or cfg.tile_pix % 32:
+        raise ValueError(f"tile of {cfg.tile_pix} pixels: the kernels need a "
+                         "multiple of 32 pixels, at most 1024")
+    if cfg.chunk % 32:
+        raise ValueError(f"chunk {cfg.chunk} is not a multiple of 32")
+    _check("payload", payload, torch.float32,
+           (payload.shape[0], C.PAYLOAD_ROWS, cfg.chunk))
+    _check("chunk_start", chunk_start, torch.int32)
+    _check("nchunks", nchunks, torch.int32, chunk_start.shape)
+    for t in (chunk_start, nchunks):
+        if t.device != payload.device:
+            raise ValueError("kernel inputs lie on different devices")
+
+
+def _launch(name: str, *args) -> None:
+    if name not in _libs:
+        build()
+    err = getattr(_libs[name], name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    launches[name] += 1
+
+
+def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
+               nchunks: torch.Tensor, width: int, height: int,
+               cfg: C.RasterConfig) -> torch.Tensor:
+    """Compositing forward -> tile_buf [T, PIX, 16]."""
+    if not payload.is_cuda:
+        return plain_core.raster_fwd_plain(payload, chunk_start, nchunks,
+                                           width, height, cfg)
+    _check_layout(payload, chunk_start, nchunks, cfg)
+    num_tiles = chunk_start.shape[0]
+    gx, gy = cfg.grid(width, height)
+    if num_tiles != gx * gy:
+        raise ValueError(f"{num_tiles} tile ranges for a {gx}x{gy} grid")
+    tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
+                           dtype=torch.float32, device=payload.device)
+    _launch("raster_fwd", payload.data_ptr(), chunk_start.data_ptr(),
+            nchunks.data_ptr(), tile_buf.data_ptr(), num_tiles, gx,
+            cfg.tile_w, cfg.tile_h, cfg.chunk,
+            torch.cuda.current_stream(payload.device).cuda_stream)
+    return tile_buf
+
+
+def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
+               nchunks: torch.Tensor, tile_buf: torch.Tensor,
+               gbuf: torch.Tensor, width: int, height: int,
+               cfg: C.RasterConfig) -> torch.Tensor:
+    """Compositing backward -> dpay [TC, 16, CH] (zero where no tile
+    reaches)."""
+    if not payload.is_cuda:
+        return plain_core.raster_bwd_plain(payload, chunk_start, nchunks,
+                                           tile_buf, gbuf, width, height, cfg)
+    _check_layout(payload, chunk_start, nchunks, cfg)
+    num_tiles = chunk_start.shape[0]
+    gx, gy = cfg.grid(width, height)
+    if num_tiles != gx * gy:
+        raise ValueError(f"{num_tiles} tile ranges for a {gx}x{gy} grid")
+    buf_shape = (num_tiles, cfg.tile_pix, C.PAD_CHANNELS)
+    _check("tile_buf", tile_buf, torch.float32, buf_shape)
+    _check("gbuf", gbuf, torch.float32, buf_shape)
+    dpay = torch.zeros((payload.shape[0], C.GRAD_ROWS, cfg.chunk),
+                       dtype=torch.float32, device=payload.device)
+    _launch("raster_bwd", payload.data_ptr(), chunk_start.data_ptr(),
+            nchunks.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
+            dpay.data_ptr(), num_tiles, gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
+            torch.cuda.current_stream(payload.device).cuda_stream)
+    return dpay

@@ -1,0 +1,149 @@
+"""Plain PyTorch versions of the two compositing kernels (port of
+``gaussianhaircut_tpu/ops/rasterize/jnp_core.py``, in the linear domain).
+
+Same inputs and outputs as the CUDA kernels in ``cuda_core.py``: the
+chunk-aligned ``payload`` [TC, 24, CH] with per-tile ``chunk_start`` /
+``nchunks``, the tile buffer [T, PIX, 16] (channels 0-9 colour, 14 the done
+latch, 15 the final transmittance) and the per-instance gradient rows
+``dpay`` [TC, 16, CH] = (d mean2D x, y in pixels, d conic a, b, c,
+d opacity, d colour 0-9).
+
+Both take the k-th chunk of every tile at once and walk its instances in
+order, vectorised over tiles and pixels, with the kernels' arithmetic in the
+kernels' order: the transmittance is a running product, so every pixel
+stops (T would drop below 1e-4) at the same instance as in the kernel.  A
+chunk is skipped once every pixel of its tile has stopped, as the kernels
+do.  They are what the CPU runs and what the kernels are held against on
+the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from gaussianhaircut_torch.ops.rasterize import common as C
+
+
+class _Walk:
+    """Per-pixel front-to-back state of the tiles being walked."""
+
+    def __init__(self, num_tiles: int, pix: int, device):
+        self.t = torch.ones((num_tiles, pix), device=device)
+        self.done = torch.zeros((num_tiles, pix), dtype=torch.bool, device=device)
+
+    def live_chunk_tiles(self, nchunks: torch.Tensor, k: int) -> torch.Tensor:
+        """Tiles that own a k-th chunk and still have a live pixel."""
+        return torch.nonzero((nchunks > k) & ~self.done.all(dim=1))[:, 0]
+
+
+def _instance(pay, j, px, py, t, done):
+    """Instance j of each tile's chunk against every pixel (forward.cu:
+    351-388): returns the blend terms and the masks.  pay [T', 24, CH];
+    px, py, t [T', PIX]; done [T', PIX] bool."""
+    g = pay[:, :8, j, None]                               # [T', 8, 1]
+    dx = g[:, C.F_GX] - px
+    dy = g[:, C.F_GY] - py
+    a, b, c = g[:, C.F_CA], g[:, C.F_CB], g[:, C.F_CC]
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    expp = torch.exp(power)
+    raw = g[:, C.F_OP] * expp
+    alpha = torch.clamp(raw, max=C.ALPHA_CLAMP)
+    visited = (g[:, C.F_VALID] > 0.5) & ~done
+    cand = visited & (power <= 0.0) & (alpha >= C.ALPHA_MIN)
+    test = t * (1.0 - alpha)
+    fail = cand & (test < C.T_EPS)
+    contrib = cand & ~fail
+    w = torch.where(contrib, alpha * t, torch.zeros_like(alpha))
+    return dict(dx=dx, dy=dy, a=a, b=b, c=c, expp=expp, raw=raw, alpha=alpha,
+                test=test, fail=fail, contrib=contrib, visited=visited, w=w)
+
+
+def raster_fwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
+                     nchunks: torch.Tensor, width: int, height: int,
+                     cfg: C.RasterConfig, stats: dict | None = None) -> torch.Tensor:
+    """Composite each tile's depth-sorted instances front to back ->
+    tile_buf [T, PIX, 16].  With ``stats``, counts the (pixel, instance)
+    pairs this input needs: ``visited`` (evaluated before the pixel stops)
+    and ``contrib`` (blended)."""
+    num_tiles = chunk_start.shape[0]
+    dev = payload.device
+    px, py = C.pixel_coords(num_tiles, width, cfg, dev)
+    acc = torch.zeros((num_tiles, cfg.tile_pix, C.NUM_CHANNELS), device=dev)
+    walk = _Walk(num_tiles, cfg.tile_pix, dev)
+    cs, nc = chunk_start.long(), nchunks.long()
+    counts = {"visited": 0, "contrib": 0}
+    for k in range(int(nc.max()) if num_tiles else 0):
+        tiles = walk.live_chunk_tiles(nc, k)
+        pay = payload[cs[tiles] + k]
+        pxt, pyt, t, done = px[tiles], py[tiles], walk.t[tiles], walk.done[tiles]
+        a = acc[tiles]
+        for j in range(pay.shape[2]):
+            q = _instance(pay, j, pxt, pyt, t, done)
+            a = a + q["w"][..., None] * pay[:, None, 8:8 + C.NUM_CHANNELS, j]
+            t = torch.where(q["contrib"], q["test"], t)
+            done = done | q["fail"]
+            if stats is not None:
+                counts["visited"] += q["visited"].sum()
+                counts["contrib"] += q["contrib"].sum()
+        acc[tiles], walk.t[tiles], walk.done[tiles] = a, t, done
+    if stats is not None:
+        for key, v in counts.items():
+            stats[key] = stats.get(key, 0) + int(v)
+    zeros = torch.zeros((num_tiles, cfg.tile_pix, C.CH_DONE - C.NUM_CHANNELS),
+                        device=dev)
+    return torch.cat([acc, zeros, walk.done.to(torch.float32)[..., None],
+                      walk.t[..., None]], dim=-1)
+
+
+def raster_bwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
+                     nchunks: torch.Tensor, tile_buf: torch.Tensor,
+                     gbuf: torch.Tensor, width: int, height: int,
+                     cfg: C.RasterConfig) -> torch.Tensor:
+    """Per-instance gradients summed over each tile's pixels -> dpay
+    [TC, 16, CH] (zero for chunks not reached).
+
+    The back-to-front suffix of the CUDA reference's backward is
+    ``total - prefix``, where total = sum over the 16 channels of g * out per
+    pixel, so the background and final-T cotangent (channel 15) reach
+    d alpha through it.  The gradient ignores the 0.99 clamp
+    (backward.cu:502-558)."""
+    num_tiles = chunk_start.shape[0]
+    dev = payload.device
+    px, py = C.pixel_coords(num_tiles, width, cfg, dev)
+    total = torch.sum(gbuf * tile_buf, dim=-1)                    # [T, PIX]
+    prefix = torch.zeros((num_tiles, cfg.tile_pix), device=dev)
+    walk = _Walk(num_tiles, cfg.tile_pix, dev)
+    dpay = torch.zeros((payload.shape[0], C.GRAD_ROWS, payload.shape[2]),
+                       device=dev)
+    cs, nc = chunk_start.long(), nchunks.long()
+    for k in range(int(nc.max()) if num_tiles else 0):
+        tiles = walk.live_chunk_tiles(nc, k)
+        chunks = cs[tiles] + k
+        pay = payload[chunks]
+        pxt, pyt, t, done = px[tiles], py[tiles], walk.t[tiles], walk.done[tiles]
+        g = gbuf[tiles, :, :C.NUM_CHANNELS]                       # [T', PIX, 10]
+        tot, pre = total[tiles], prefix[tiles]
+        rows = []
+        for j in range(pay.shape[2]):
+            q = _instance(pay, j, pxt, pyt, t, done)
+            u = torch.sum(g * pay[:, None, 8:8 + C.NUM_CHANNELS, j], dim=-1)
+            pre = pre + u * q["w"]
+            suffix = tot - pre
+            dalpha = torch.where(q["contrib"], u * t - suffix / (1.0 - q["alpha"]),
+                                 torch.zeros_like(u))
+            m = dalpha * q["raw"]                                 # dL/d power
+            dx, dy = q["dx"], q["dy"]
+            terms = torch.stack([
+                -(q["a"] * dx + q["b"] * dy) * m,                 # d mean x
+                -(q["c"] * dy + q["b"] * dx) * m,                 # d mean y
+                -0.5 * m * dx * dx,                               # d conic a
+                -m * dx * dy,                                     # d conic b
+                -0.5 * m * dy * dy,                               # d conic c
+                dalpha * q["expp"],                               # d opacity
+            ], dim=-1)
+            dcol = g * q["w"][..., None]                          # d colour
+            rows.append(torch.cat([terms, dcol], dim=-1).sum(dim=1))
+            t = torch.where(q["contrib"], q["test"], t)
+            done = done | q["fail"]
+        dpay[chunks] = torch.stack(rows, dim=-1)
+        prefix[tiles], walk.t[tiles], walk.done[tiles] = pre, t, done
+    return dpay
