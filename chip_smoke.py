@@ -18,8 +18,10 @@ views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
 
 Each phase prints one JSON line; then one line lists every kernel, then the
 card's name and power limit, and the last line is the device record.  Any
-failure raises: the script exits non-zero without the last line.  Times are
-CUDA-event medians on this card.
+failure raises: the script exits non-zero without the last line.  With
+``--phases`` naming only some phases, the last line is ``{"ok": "partial",
+...}`` and no kernels line is printed.  Times are CUDA-event medians on this
+card.
 """
 import argparse
 import json
@@ -51,6 +53,9 @@ PEAK_BYTES = 3.35e12
 OPS_VISIT = 16
 OPS_BLEND_FWD = 23
 OPS_BLEND_BWD = 90
+# gradient rows of the backward's dpay [TC, 16, CH], by what they hold
+DPAY_ROWS = {"mean": range(0, 2), "conic": range(2, 5), "opacity": range(5, 6),
+             "colour": range(6, 16)}
 
 
 def emit(obj) -> None:
@@ -120,6 +125,27 @@ def seeded_cotangent(torch, cfg, dev):
                                    WIDTH, HEIGHT, cfg)
 
 
+def hold_dpay(got, plain, rtol: float = 1e-3, atol_frac: float = 1e-4) -> dict:
+    """Holds the backward kernel's dpay against its plain version row by
+    row: |got - plain| <= atol_frac * max|plain row| + rtol * |plain|.  One
+    scale for all rows would let the conic rows, larger than the others by
+    orders of magnitude, hide a wrong mean, opacity or colour row.  Returns
+    each row's max |plain| and max error, by row group."""
+    scale = plain.abs().amax(dim=(0, 2))
+    err = (got - plain).abs()
+    excess = (err - (atol_frac * scale[None, :, None] + rtol * plain.abs())).amax(dim=(0, 2))
+    err = err.amax(dim=(0, 2))
+    for row in range(plain.shape[1]):
+        require(float(scale[row]) > 0,
+                f"backward: plain row {row} is all zero, so the check cannot fail there")
+        require(float(excess[row]) <= 0,
+                f"backward kernel: row {row} beyond rtol {rtol} / atol {atol_frac} x "
+                f"max|row| (max|row| {float(scale[row])}, max err {float(err[row])})")
+    return {group: {"max_abs_dpay": scale[list(rows)].tolist(),
+                    "max_abs_err": err[list(rows)].tolist()}
+            for group, rows in DPAY_ROWS.items()}
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
@@ -152,7 +178,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi()
-    cfg = C.RasterConfig(tile_w=32, tile_h=32, chunk=256, backend="cuda")
+    cfg = C.RasterConfig(tile_w=32, tile_h=32, chunk=256)
     kernels = {
         "raster_fwd": {"name": "raster_fwd", "route": "cuda",
                        "source": "gaussianhaircut_torch/csrc/raster_fwd.cu",
@@ -231,36 +257,36 @@ def main() -> int:
         require(torch.equal(d1, d2), "backward kernel: two runs differ")
         require(torch.equal(segment_sum(d1, binned), segment_sum(d2, binned)),
                 "segment reduction: two runs differ")
-        scale = float(plain.abs().max())
-        diff = (d1 - plain).abs()
-        excess = float((diff - (1e-4 * scale + 1e-3 * plain.abs())).max())
-        require(excess <= 0.0, f"backward kernel: beyond rtol 1e-3 / atol 1e-4*max "
-                f"(max|dpay| {scale}, max err {float(diff.max())})")
+        rows = hold_dpay(d1, plain)
+        max_err = float((d1 - plain).abs().max())
         ms = cuda_ms(torch, lambda: cuda_core.raster_bwd(*bargs), REPS)
         plain_ms = cuda_ms(torch, lambda: plain_core.raster_bwd_plain(*bargs), REPS)
         ops = stats["visited"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_BWD
         nbytes = in_bytes + 2 * buf_bytes + used_chunks * C.GRAD_ROWS * cfg.chunk * 4
         b_ms, b_by = bound_ms(nbytes, ops)
-        kernels["raster_bwd"].update(max_abs_err=float(diff.max()), ms=ms,
+        kernels["raster_bwd"].update(max_abs_err=max_err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        emit({"phase": "kernel_bwd", "max_abs_dpay": scale,
-              "max_abs_err": float(diff.max()), "bit_identical": True, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+        emit({"phase": "kernel_bwd", "rows": rows, "max_abs_err": max_err,
+              "bit_identical": True, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b_ms, "bound_by": b_by})
         del plain, d1, d2
 
     if "train" in phases:
         emit(train_phase(torch, scene, cfg, dev, kernels))
 
-    if all(ph in phases for ph in PHASES):
+    complete = all(ph in phases for ph in PHASES)
+    if complete:
         for k in kernels.values():
             missing = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by"} - set(k)
             require(not missing, f"{k['name']}: no {sorted(missing)}")
         emit({"kernels": list(kernels.values())})
     print(nvidia_smi())
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    # a run of some phases only is no smoke run: its last line says so
+    emit({"ok": True, "device": device} if complete
+         else {"ok": "partial", "phases": phases, "device": device})
     return 0
 
 
@@ -269,7 +295,6 @@ def small_input_check(torch, cfg, dev):
     segment reduction inside rasterize's autograd.Function) against the
     plain path on the CPU, on a small scene: image and parameter gradients
     of a seeded weighted sum of the render."""
-    import dataclasses
     from gaussianhaircut_torch.models import gaussian_model as gm
     from gaussianhaircut_torch.render.renderer import default_background, render
     from gaussianhaircut_torch.scene.cameras import CameraBatch, camera_geom
@@ -278,19 +303,18 @@ def small_input_check(torch, cfg, dev):
     weights = torch.from_numpy(np.random.default_rng(SEED + 3).normal(
         size=(10, 96, 128)).astype(np.float32))
     outs = {}
-    for d, backend in ((dev, "cuda"), (torch.device("cpu"), "plain")):
+    for d in (dev, torch.device("cpu")):
         model = gm.create_from_pcd(small.points, small.colors, 2048, 3, 1.0, d)
         params = model.params.map(lambda t: t.detach().requires_grad_())
         cb = CameraBatch.from_cameras(small.train_cameras, d)
         cam = camera_geom(cb.colmap_transform[1], cb.fovx[1], cb.fovy[1], 128, 96, None)
-        out = render(params, model.aux.alive, 3, cam, default_background(False, d),
-                     dataclasses.replace(cfg, backend=backend))
+        out = render(params, model.aux.alive, 3, cam, default_background(False, d), cfg)
         loss = torch.sum(out["render10"] * weights.to(d))
         grads = torch.autograd.grad(loss, params.values())
-        outs[backend] = [out["render10"].detach().cpu()] + [g.cpu() for g in grads]
+        outs[d.type] = [out["render10"].detach().cpu()] + [g.cpu() for g in grads]
     errs = {}
     for name, a, b in zip(("render",) + tuple(gm.GaussianParams.names()),
-                          outs["cuda"], outs["plain"]):
+                          outs["cuda"], outs["cpu"]):
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         ok = bool(((a - b).abs() <= 1e-4 * max(scale, 1.0) + 1e-3 * b.abs()).all())
@@ -314,7 +338,7 @@ def train_phase(torch, scene, cfg, dev, kernels):
                                  opacity_reset_interval=30)
     model_cfg = ModelConfig(sh_degree=3, use_barf=True, trainable_cameras=True,
                             trainable_intrinsics=True)
-    pipe_cfg = PipelineConfig(raster_backend="cuda", tile=32)
+    pipe_cfg = PipelineConfig(tile=32)
     totals, oks, alive, marks = [], [], {}, {}
 
     def progress(it, st, m):

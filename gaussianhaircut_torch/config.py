@@ -1,9 +1,9 @@
 """Configuration dataclasses (a copy of ``gaussianhaircut_tpu/config.py``).
 
 Same field names and defaults as the JAX package, so a run configured for one
-translates 1:1 to the other.  ``PipelineConfig.raster_backend`` selects the
-port's compositing backend: ``auto`` (the CUDA kernels for CUDA tensors, the
-plain PyTorch version for CPU tensors), ``cuda`` or ``plain``.
+translates 1:1 to the other.  The JAX package's ``raster_backend`` has no
+counterpart: the port's compositing route follows the tensors' device (the
+CUDA kernels for CUDA tensors, the plain PyTorch version for CPU tensors).
 """
 from __future__ import annotations
 
@@ -84,6 +84,5 @@ class PipelineConfig:
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
     debug: bool = False
-    raster_backend: str = "auto"            # auto | cuda | plain
     gaussian_capacity: int = 0              # 0 -> auto from init size
     tile: int = 32

@@ -9,7 +9,9 @@ runs the compositing backward to per-instance gradients, then reduces them
 to per-Gaussian gradients deterministically: a gather into expansion order
 (where each Gaussian's instances are contiguous) and a float64 cumulative-sum
 difference per segment.  No float atomics anywhere, so a backward is
-bit-reproducible.
+bit-reproducible.  The tensors' device picks the compositing route
+(``cuda_core``): CUDA tensors launch the kernels, CPU tensors run their
+plain versions.
 
 Gradient routing matches the reference: the NDC->pixel factors W/2, H/2 are
 applied here (backward.cu:462-465); depth orders but never differentiates;
@@ -22,24 +24,13 @@ from typing import Any
 import torch
 
 from gaussianhaircut_torch.ops.rasterize import common as C
-from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
+from gaussianhaircut_torch.ops.rasterize import cuda_core
 
 
 def ndc_xy_to_pixel(ndc: torch.Tensor, width: int, height: int) -> torch.Tensor:
     """[P, >=2] NDC -> [P, 2] pixel centers (cuda ndc2Pix)."""
     size = torch.tensor([width, height], dtype=ndc.dtype, device=ndc.device)
     return ((ndc[:, :2] + 1.0) * size - 1.0) * 0.5
-
-
-def _cores(cfg: C.RasterConfig, device: torch.device):
-    """(forward, backward) compositing functions for ``cfg.backend``."""
-    if cfg.backend == "plain":
-        return plain_core.raster_fwd_plain, plain_core.raster_bwd_plain
-    if cfg.backend == "cuda" and device.type != "cuda":
-        raise ValueError(f"raster backend 'cuda' needs CUDA tensors, got {device}")
-    if cfg.backend not in ("auto", "cuda"):
-        raise ValueError(f"unknown raster backend: {cfg.backend!r}")
-    return cuda_core.raster_fwd, cuda_core.raster_bwd
 
 
 def segment_sum(dpay: torch.Tensor, binned: C.Binned) -> torch.Tensor:
@@ -61,18 +52,16 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ndc, conic, colors, opacity, depth, valid, bg, width,
                 height, cfg, info):
-        fwd, bwd = _cores(cfg, ndc.device)
         mean_pix = ndc_xy_to_pixel(ndc, width, height)
         pre = C.preprocess(mean_pix, conic, depth, valid, width, height, cfg,
                            opacity=opacity)
         binned = C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
                                  width, height, cfg)
-        tile_buf = fwd(binned.payload, binned.chunk_start, binned.nchunks,
+        tile_buf = cuda_core.raster_fwd(binned.payload, binned.chunk_start, binned.nchunks,
                        width, height, cfg)
         image, t_final = C.assemble_image(tile_buf, bg, width, height, cfg)
         info["num_rendered"] = binned.num_rendered
         ctx.binned = binned
-        ctx.bwd = bwd
         ctx.dims = (width, height, cfg)
         ctx.save_for_backward(tile_buf, bg, t_final)
         radii = pre.radius.to(torch.int32)
@@ -86,8 +75,8 @@ class _Rasterize(torch.autograd.Function):
         width, height, cfg = ctx.dims
         b = ctx.binned
         gbuf = C.disassemble_cotangent(g_img, g_t, bg, width, height, cfg)
-        dpay = ctx.bwd(b.payload, b.chunk_start, b.nchunks, tile_buf, gbuf,
-                       width, height, cfg)
+        dpay = cuda_core.raster_bwd(b.payload, b.chunk_start, b.nchunks,
+                                    tile_buf, gbuf, width, height, cfg)
         seg = segment_sum(dpay, b)
         d_ndc = torch.stack([seg[:, C.F_GX] * (width * 0.5),
                              seg[:, C.F_GY] * (height * 0.5),

@@ -45,7 +45,6 @@ class RasterConfig:
     tile_w: int = 32
     tile_h: int = 32
     chunk: int = 256             # instances per chunk
-    backend: str = "auto"        # auto | cuda | plain
 
     @property
     def tile_pix(self) -> int:
@@ -189,9 +188,10 @@ def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
     lane = torch.arange(ch, device=dev)[None, :]
     off_in_tile = chunk_in_tile[:, None] * ch + lane
     slot_ok = used[:, None] & (off_in_tile < counts[tile_of_chunk][:, None])
+    # empty slots point one past the stream, at gid P (also when total is 0)
     pos = torch.where(slot_ok, tile_start[tile_of_chunk][:, None] + off_in_tile,
-                      torch.zeros_like(off_in_tile))
-    gid_slot = torch.where(slot_ok, gid_sorted[pos], torch.full_like(pos, p))
+                      torch.full_like(off_in_tile, total))
+    gid_slot = torch.cat([gid_sorted, gid_sorted.new_full((1,), p)])[pos]
 
     # each instance's slot, in expansion order (a permutation scatter: the
     # indices are distinct, so the result does not depend on write order)

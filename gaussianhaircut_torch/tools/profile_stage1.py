@@ -46,7 +46,7 @@ def main() -> int:
     cam_batch = CameraBatch.from_cameras(cams, dev)
     gt = stage1.GtBatch.from_cameras(cams, dev)
     kw = dict(active_sh_degree=3, width=cams[0].width, height=cams[0].height,
-              raster_cfg=RasterConfig(backend="cuda"),
+              raster_cfg=RasterConfig(),
               opt_cfg=OptimizationConfig(lambda_dorient=0.1),
               trainable_cameras=True, trainable_intrinsics=True, use_barf=True,
               white_background=False)

@@ -294,8 +294,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                      model_cfg.sh_degree, scene.cameras_extent,
                                      device)
     state = init_train_state(model_state, len(cams), model_cfg.use_barf)
-    raster_cfg = RasterConfig(tile_w=pipe_cfg.tile, tile_h=pipe_cfg.tile,
-                              backend=pipe_cfg.raster_backend)
+    raster_cfg = RasterConfig(tile_w=pipe_cfg.tile, tile_h=pipe_cfg.tile)
     rng = random.Random(0)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

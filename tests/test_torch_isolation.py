@@ -99,14 +99,25 @@ def test_port_runs_without_jax():
 
 
 def test_cuda_backend_refuses_cpu_tensors():
-    """backend="cuda" never falls back to the plain version."""
+    """The route follows the tensors' device and nothing else: the kernel
+    route refuses CPU tensors, and rasterize() on CPU tensors runs the plain
+    versions without counting a launch."""
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.ops.rasterize.api import rasterize
     from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
+    cfg = RasterConfig()
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        cuda_core._check_layout(torch.zeros(1, 24, cfg.chunk),
+                                torch.zeros(1, dtype=torch.int32),
+                                torch.ones(1, dtype=torch.int32), cfg)
+    assert not hasattr(cfg, "backend")
     p = 4
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        rasterize(torch.zeros(p, 3), torch.ones(p, 3), torch.zeros(p, 10),
-                  torch.ones(p, 1), torch.ones(p), torch.ones(p, dtype=torch.bool),
-                  torch.zeros(10), 32, 32, RasterConfig(backend="cuda"))
+    before = dict(cuda_core.launches)
+    out = rasterize(torch.zeros(p, 3), torch.ones(p, 3), torch.zeros(p, 10),
+                    torch.ones(p, 1), torch.ones(p), torch.ones(p, dtype=torch.bool),
+                    torch.zeros(10), 32, 32, cfg)
+    assert out["render"].shape == (10, 32, 32)
+    assert cuda_core.launches == before
 
 
 def test_kernel_checks_reject_cpu_tensors():
