@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_bwd,train]
+    python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,cli]
 
-Drives the port's main path, the stage-1 trainer, on the bench scene
-(seeded synthetic point cloud, 100k Gaussians, 960x544, SH degree 3, four
-views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
+Drives the port's main paths, the stage-1 trainer and its CLIs, on the
+bench scene (seeded synthetic point cloud, 100k Gaussians, 960x544, SH
+degree 3, four views, BARF camera residuals trainable, 32x32 tiles, chunk
+256):
 
-1. env        -- requires CUDA; prints the card's name and power limit;
-2. build      -- compiles the CUDA kernels from the checkout's sources;
-3. kernel_fwd -- the compositing forward kernel against its plain PyTorch
-                 version on camera 0 of the bench scene;
-4. kernel_bwd -- the compositing backward kernel against its plain version,
-                 and two kernel runs bit for bit;
-5. train      -- the port's ``train()`` for 50 iterations with densify and
-                 one opacity reset; launch counts must equal the steps.
+1. env          -- requires CUDA; prints the card's name and power limit;
+2. build        -- compiles the CUDA kernels from the checkout's sources;
+3. kernel_fwd   -- the compositing forward kernel against its plain PyTorch
+                   version on camera 0 of the bench scene;
+4. kernel_probe -- the forward's fixed-cost probe against its plain version
+                   on the same layout, then the profiling path
+                   (``tools/profile_fixed.measure``): forward, probe and
+                   grid-only probe timed in turns, and the forward's split
+                   into fixed cost and pair maths;
+5. kernel_bwd   -- the compositing backward kernel against its plain version,
+                   and two kernel runs bit for bit;
+6. train        -- the port's ``train()`` for 50 iterations with densify and
+                   one opacity reset; launch counts must equal the steps;
+7. cli          -- the bench scene written to disk in the COLMAP layout,
+                   ``cli.train_gaussians`` for 60 iterations (evaluation,
+                   PLY, checkpoint and camera pickles), a resume from the
+                   iteration-30 checkpoint to 40, and ``cli.render_gaussians``
+                   on the result; launch counts must equal the steps plus
+                   the renders.
 
 Each phase prints one JSON line; then one line lists every kernel, then the
 card's name and power limit, and the last line is the device record.  Any
@@ -34,7 +46,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernel_fwd", "kernel_bwd", "train")
+PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "cli")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -65,53 +77,6 @@ def emit(obj) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median CUDA-event time of fn() in ms."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def binned_inputs(torch, params, alive, sh_degree, scene, cam_idx, cfg, dev):
-    """Render inputs of one camera, preprocessed and binned (no autograd)."""
-    from gaussianhaircut_torch.ops.rasterize import common as C
-    from gaussianhaircut_torch.ops.rasterize.api import ndc_xy_to_pixel
-    from gaussianhaircut_torch.render.renderer import (
-        fields_from_params, prepare_raster_inputs)
-    from gaussianhaircut_torch.scene.cameras import CameraBatch, camera_geom
-    with torch.no_grad():
-        cb = CameraBatch.from_cameras(scene.train_cameras, dev)
-        cam = camera_geom(cb.colmap_transform[cam_idx], cb.fovx[cam_idx],
-                          cb.fovy[cam_idx], WIDTH, HEIGHT, None)
-        ndc, conic, colors, opacity, depth, valid = prepare_raster_inputs(
-            fields_from_params(params, alive), sh_degree, cam)
-        mean_pix = ndc_xy_to_pixel(ndc, WIDTH, HEIGHT)
-
-        def binning():
-            pre = C.preprocess(mean_pix, conic, depth, valid, WIDTH, HEIGHT, cfg,
-                               opacity=opacity)
-            return C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
-                                   WIDTH, HEIGHT, cfg)
-        return binning(), binning
 
 
 def seeded_cotangent(torch, cfg, dev):
@@ -170,6 +135,8 @@ def main() -> int:
         from gaussianhaircut_torch.ops.rasterize import common as C
         from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
         from gaussianhaircut_torch.ops.rasterize.api import segment_sum
+        from gaussianhaircut_torch.tools.profile_fixed import (
+            binned_inputs, cuda_ms, nvidia_smi)
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing next to this "
               f"script ({e})", file=sys.stderr)
@@ -188,6 +155,10 @@ def main() -> int:
                        "source": "gaussianhaircut_torch/csrc/raster_bwd.cu",
                        "replaces": "gaussianhaircut_tpu/ops/rasterize/pallas_core.py:938",
                        "library_ms": None},
+        "raster_probe": {"name": "raster_probe", "route": "cuda",
+                         "source": "gaussianhaircut_torch/csrc/raster_probe.cu",
+                         "replaces": "tools/tpu_profile_r4.py:493",
+                         "library_ms": None},
     }
 
     if "env" in phases:
@@ -209,10 +180,10 @@ def main() -> int:
     scene = bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED)
     fwd_tile_buf = None
     binned = None
-    if "kernel_fwd" in phases or "kernel_bwd" in phases:
+    if any(ph in phases for ph in ("kernel_fwd", "kernel_probe", "kernel_bwd")):
         from gaussianhaircut_torch.models import gaussian_model as gm
         model = gm.create_from_pcd(scene.points, scene.colors, P, 3, 1.0, dev)
-        binned, _ = binned_inputs(torch, model.params, model.aux.alive, 3, scene,
+        binned, _ = binned_inputs(model.params, model.aux.alive, 3, scene,
                                   0, cfg, dev)
         lay = (binned.payload, binned.chunk_start, binned.nchunks)
         used_chunks = int(binned.nchunks.sum())
@@ -231,8 +202,8 @@ def main() -> int:
         require(bool(torch.isfinite(fwd_tile_buf).all()), "forward kernel: non-finite output")
         require(err_col <= 1e-4, f"forward kernel: colour/T error {err_col} > 1e-4")
         require(err_depth <= 1e-3, f"forward kernel: depth error {err_depth} > 1e-3")
-        ms = cuda_ms(torch, lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg), REPS)
-        plain_ms = cuda_ms(torch, lambda: plain_core.raster_fwd_plain(
+        ms = cuda_ms(lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg), REPS)
+        plain_ms = cuda_ms(lambda: plain_core.raster_fwd_plain(
             *lay, WIDTH, HEIGHT, cfg), REPS)
         ops = stats["visited"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_FWD
         b_ms, b_by = bound_ms(in_bytes + buf_bytes, ops)
@@ -245,6 +216,9 @@ def main() -> int:
               "done_latch_mismatches": done_mismatch, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by,
               "launches": cuda_core.launches["raster_fwd"]})
+
+    if "kernel_probe" in phases:
+        emit(probe_phase(torch, binned, cfg, in_bytes + buf_bytes, kernels))
 
     if "kernel_bwd" in phases:
         gbuf = seeded_cotangent(torch, cfg, dev)
@@ -259,8 +233,8 @@ def main() -> int:
                 "segment reduction: two runs differ")
         rows = hold_dpay(d1, plain)
         max_err = float((d1 - plain).abs().max())
-        ms = cuda_ms(torch, lambda: cuda_core.raster_bwd(*bargs), REPS)
-        plain_ms = cuda_ms(torch, lambda: plain_core.raster_bwd_plain(*bargs), REPS)
+        ms = cuda_ms(lambda: cuda_core.raster_bwd(*bargs), REPS)
+        plain_ms = cuda_ms(lambda: plain_core.raster_bwd_plain(*bargs), REPS)
         ops = stats["visited"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_BWD
         nbytes = in_bytes + 2 * buf_bytes + used_chunks * C.GRAD_ROWS * cfg.chunk * 4
         b_ms, b_by = bound_ms(nbytes, ops)
@@ -273,6 +247,9 @@ def main() -> int:
 
     if "train" in phases:
         emit(train_phase(torch, scene, cfg, dev, kernels))
+
+    if "cli" in phases:
+        emit(cli_phase(torch))
 
     complete = all(ph in phases for ph in PHASES)
     if complete:
@@ -288,6 +265,47 @@ def main() -> int:
     emit({"ok": True, "device": device} if complete
          else {"ok": "partial", "phases": phases, "device": device})
     return 0
+
+
+def probe_phase(torch, binned, cfg, nbytes, kernels):
+    """The fixed-cost probe against its plain version on the forward's
+    layout, then the profiling path (``profile_fixed.measure``) with the
+    launch counts set to 0 just before it."""
+    from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
+    from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, measure
+    lay = (binned.payload, binned.chunk_start, binned.nchunks)
+    got = cuda_core.raster_probe(*lay, cfg)
+    plain = plain_core.raster_probe_plain(*lay, cfg)
+    torch.cuda.synchronize()
+    # the kernel sums in float32 in another order: per tile, 1e-5 of the
+    # tile's sum of |row 0| over its chunks, plus 1e-5
+    abs_sum = plain_core.raster_probe_plain(binned.payload.abs(), *lay[1:], cfg)[:, 0, 0]
+    err = (got - plain).abs().amax(dim=(1, 2))
+    has = binned.nchunks > 0
+    require(bool((err <= 1e-5 * (abs_sum + 1.0)).all()),
+            f"probe kernel: error beyond 1e-5 x (sum|row 0| + 1): max err "
+            f"{float(err.max())}")
+    require(bool((got[has] != 0).all()), "probe kernel: zero output on a tile with chunks")
+    require(bool((got[~has] == 0).all()), "probe kernel: non-zero output on an empty tile")
+    plain_ms = cuda_ms(lambda: plain_core.raster_probe_plain(*lay, cfg), REPS)
+
+    cuda_core.reset_launch_counts()
+    res = measure(binned, WIDTH, HEIGHT, cfg, reps=REPS)
+    torch.cuda.synchronize()
+    launches = cuda_core.launches["raster_probe"]
+    require(launches > 0, "profiling path: the probe kernel was not launched")
+    used_chunks = int(binned.nchunks.sum())
+    # FP32 operations: the chunk's 255 shuffle adds, then per pixel the
+    # ch / 32 partials and 16 accumulator adds
+    ops = used_chunks * (cfg.chunk + cfg.tile_pix * (cfg.chunk // 32 + 16))
+    b_ms, b_by = bound_ms(nbytes, ops)
+    kernels["raster_probe"].update(launches=launches, max_abs_err=float(err.max()),
+                                   ms=res["probe_ms"], plain_ms=plain_ms,
+                                   bound_ms=b_ms, bound_by=b_by)
+    return {"phase": "kernel_probe", "max_abs_err": float(err.max()),
+            "max_tile_abs_sum": float(abs_sum.max()), "tiles_with_chunks": int(has.sum()),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "launches": dict(cuda_core.launches), **res}
 
 
 def small_input_check(torch, cfg, dev):
@@ -330,6 +348,7 @@ def train_phase(torch, scene, cfg, dev, kernels):
     from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.ops.rasterize.api import segment_sum
+    from gaussianhaircut_torch.tools.profile_fixed import binned_inputs, cuda_ms
     from gaussianhaircut_torch.train import stage1
 
     iters, window = 50, 10
@@ -373,19 +392,19 @@ def train_phase(torch, scene, cfg, dev, kernels):
 
     # per-step split at the final state's shapes (camera 0, SH degree 0 as
     # the trainer uses before iteration 1000)
-    binned, binning = binned_inputs(torch, state.model.params, state.model.aux.alive,
+    binned, binning = binned_inputs(state.model.params, state.model.aux.alive,
                                     0, scene, 0, cfg, dev)
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
     tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
     gbuf = seeded_cotangent(torch, cfg, dev)
     dpay = cuda_core.raster_bwd(*lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg)
     split = {
-        "binning_ms": cuda_ms(torch, binning, REPS),
-        "forward_kernel_ms": cuda_ms(torch, lambda: cuda_core.raster_fwd(
+        "binning_ms": cuda_ms(binning, REPS),
+        "forward_kernel_ms": cuda_ms(lambda: cuda_core.raster_fwd(
             *lay, WIDTH, HEIGHT, cfg), REPS),
-        "backward_kernel_ms": cuda_ms(torch, lambda: cuda_core.raster_bwd(
+        "backward_kernel_ms": cuda_ms(lambda: cuda_core.raster_bwd(
             *lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg), REPS),
-        "segment_reduction_ms": cuda_ms(torch, lambda: segment_sum(dpay, binned), REPS),
+        "segment_reduction_ms": cuda_ms(lambda: segment_sum(dpay, binned), REPS),
     }
     split["rest_ms"] = step_ms - sum(split.values())
     return {"phase": "train", "iterations": iters, "it_per_s_median": its,
@@ -395,6 +414,104 @@ def train_phase(torch, scene, cfg, dev, kernels):
             "loss_first": float(totals[0]), "loss_last": float(totals[-1]),
             "num_alive": {str(k): v for k, v in sorted(alive.items())},
             "num_rendered_final": binned.num_rendered, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def cli_phase(torch):
+    """The stage-1 CLIs on the bench scene written to disk: train 60
+    iterations (evaluation at 30 and 60, PLY at 60, checkpoint and camera
+    pickles at 30), resume from the checkpoint to 40 in a second model
+    directory, and render the first model.  it/s is the median over the
+    10-step windows of the metrics log's timestamps (each logged step syncs
+    the card)."""
+    import tempfile
+    from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
+    from gaussianhaircut_torch.config import ModelConfig
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.scene import ply
+    from gaussianhaircut_torch.scene.dataset import load_scene
+    from gaussianhaircut_torch.scene.synthetic import bench_scene, write_colmap_scene
+
+    iters, n_evals = 60, 2
+    eval_views = 5            # train() scores 5 sampled train views per test
+    with tempfile.TemporaryDirectory(prefix="ghsmoke_") as root:
+        src, m1, m2 = (os.path.join(root, d) for d in ("scene", "model", "resumed"))
+        t0 = time.perf_counter()
+        write_colmap_scene(bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED), src)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_scene(ModelConfig(source_path=src))
+        load_s = time.perf_counter() - t0
+        require(len(loaded.train_cameras) == N_VIEWS
+                and loaded.train_cameras[0].image.shape == (3, HEIGHT, WIDTH),
+                "cli: the written scene does not load back at its size")
+        del loaded
+        common = ["-s", src, "--sh_degree", "3", "--lambda_dorient", "0.1",
+                  "--tile", "32", "--densify_from_iter", "10",
+                  "--densification_interval", "10", "--opacity_reset_interval", "30"]
+
+        torch.cuda.reset_peak_memory_stats()
+        cuda_core.reset_launch_counts()
+        state = train_gaussians.main(common + [
+            "-m", m1, "--iterations", str(iters), "--test_iterations", "30", "60",
+            "--save_iterations", "60", "--checkpoint_iterations", "30"])
+        torch.cuda.synchronize()
+        train_launches = dict(cuda_core.launches)
+        require(train_launches["raster_bwd"] == iters,
+                f"cli: raster_bwd launched {train_launches['raster_bwd']} times in {iters} steps")
+        require(train_launches["raster_fwd"] == iters + n_evals * eval_views,
+                f"cli: raster_fwd launched {train_launches['raster_fwd']} times, expected "
+                f"{iters} steps + {n_evals * eval_views} evaluation renders")
+        with open(os.path.join(m1, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        evals = {r["step"]: r for r in recs if "train_psnr" in r}
+        require(sorted(evals) == [30, 60], f"cli: evaluations at {sorted(evals)}")
+        for r in evals.values():
+            require(all(np.isfinite(r[k]) for k in ("train_l1", "train_ce", "train_or",
+                                                   "train_psnr")), f"cli: eval {r}")
+        logged = {r["step"]: r["t"] for r in recs if "ema" in r}
+        steps = sorted(logged)
+        rates = [(b - a) / (logged[b] - logged[a]) for a, b in zip(steps[:-1], steps[1:])]
+        n_alive = state.model.num_alive()
+        n_ply = len(ply.read_ply(os.path.join(
+            m1, "point_cloud", f"iteration_{iters}", "point_cloud.ply"))["vertex"])
+        require(n_ply == n_alive, f"cli: PLY holds {n_ply} rows, num_alive {n_alive}")
+        for f in ("checkpoints/30.npz", "cameras/30.pkl", "cameras/30_matrices.pkl",
+                  "cfg_args.json", f"point_cloud/iteration_{iters}/raw_point_cloud.ply"):
+            require(os.path.exists(os.path.join(m1, f)), f"cli: {f} not written")
+
+        cuda_core.reset_launch_counts()
+        resumed = train_gaussians.main(common + [
+            "-m", m2, "--iterations", "40",
+            "--start_checkpoint", os.path.join(m1, "checkpoints", "30.npz")])
+        torch.cuda.synchronize()
+        resume_launches = dict(cuda_core.launches)
+        require(resumed.step == 40 and resume_launches["raster_bwd"] == 10
+                and resume_launches["raster_fwd"] == 10,
+                f"cli: resume from 30 to 40 launched {resume_launches}")
+
+        cuda_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        render_gaussians.main(["-s", src, "-m", m1, "--sh_degree", "3"])
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        render_launches = dict(cuda_core.launches)
+        require(render_launches["raster_fwd"] == N_VIEWS
+                and render_launches["raster_bwd"] == 0,
+                f"cli: render of {N_VIEWS} views launched {render_launches}")
+        out = os.path.join(m1, "train", f"ours_{iters}")
+        kinds = sorted(os.listdir(out))
+        names = {os.path.splitext(f)[0] for k in kinds for f in os.listdir(os.path.join(out, k))}
+        n_files = sum(len(os.listdir(os.path.join(out, k))) for k in kinds)
+        require(len(kinds) == 7 and len(names) == N_VIEWS and n_files == 7 * N_VIEWS,
+                f"cli: export holds {n_files} files in {kinds} for {len(names)} views")
+    return {"phase": "cli", "scene_write_s": write_s, "scene_load_s": load_s,
+            "iterations": iters, "it_per_s_median": statistics.median(rates),
+            "it_per_s_windows": rates, "eval": {str(k): v for k, v in evals.items()},
+            "num_alive": n_alive, "ply_rows": n_ply,
+            "render_export_s_per_view": render_s / N_VIEWS,
+            "launches": {"train": train_launches, "resume": resume_launches,
+                         "render": render_launches},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 

@@ -1,0 +1,77 @@
+"""Stage-1 training CLI (port of ``gaussianhaircut_tpu/cli/
+train_gaussians.py``; reference src/train_gaussians.py:295-321 -- same
+flags).
+
+    python3 -m gaussianhaircut_torch.cli.train_gaussians -s SCENE -m MODEL [...]
+
+Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
+Not ported: ``--gui`` (the SIBR live viewer) and a non-empty ``--mesh`` (the
+multi-device step); both raise ``NotImplementedError``.  The JAX-only
+``--raster_backend`` and ``--instance_capacity_mult`` are not accepted
+(see ``config.py``).
+"""
+from __future__ import annotations
+
+import argparse
+
+from gaussianhaircut_torch import config as cfg_mod
+from gaussianhaircut_torch.device import resolve_device
+from gaussianhaircut_torch.scene.dataset import load_scene
+from gaussianhaircut_torch.train import stage1
+
+
+def main(argv=None):
+    """Parse ``argv`` (default: ``sys.argv[1:]``), train, and return the
+    final ``stage1.TrainState``."""
+    parser = argparse.ArgumentParser("train_gaussians")
+    cfg_mod.add_model_args(parser)
+    cfg_mod.add_optim_args(parser)
+    cfg_mod.add_pipeline_args(parser)
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[1_000, 5_000, 15_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[1_000, 5_000, 15_000, 30_000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[1_000, 5_000, 15_000, 30_000])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--gui", action="store_true",
+                        help="the SIBR live viewer (not ported)")
+    parser.add_argument("--mesh", type=str, default="",
+                        help="multi-device mesh 'DATAxTILE' (not ported)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device; default cuda (cpu runs the plain "
+                        "PyTorch path)")
+    args = parser.parse_args(argv)
+
+    if args.gui:
+        raise NotImplementedError("--gui: the live viewer is not ported "
+                                  "(ROADMAP Queue 1 item 10)")
+    if args.mesh:
+        raise NotImplementedError("--mesh: the multi-device step is not ported "
+                                  "(ROADMAP Queue 1 item 9)")
+
+    device = resolve_device(args.device)
+    model_cfg = cfg_mod.extract(cfg_mod.ModelConfig, args)
+    opt_cfg = cfg_mod.extract(cfg_mod.OptimizationConfig, args)
+    pipe_cfg = cfg_mod.extract(cfg_mod.PipelineConfig, args)
+    save_iters = sorted(set(args.save_iterations + [opt_cfg.iterations]))
+
+    print(f"Optimizing {model_cfg.model_path}")
+    cfg_mod.save_config(model_cfg.model_path, model_cfg, opt_cfg, pipe_cfg)
+
+    scene = load_scene(model_cfg)
+    state = stage1.train(model_cfg, opt_cfg, pipe_cfg, scene,
+                         test_iterations=tuple(args.test_iterations),
+                         save_iterations=tuple(save_iters),
+                         checkpoint_iterations=tuple(args.checkpoint_iterations),
+                         start_checkpoint=args.start_checkpoint,
+                         device=device)
+    print("\nTraining complete.")
+    return state
+
+
+if __name__ == "__main__":
+    main()

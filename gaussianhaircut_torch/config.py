@@ -1,12 +1,26 @@
-"""Configuration dataclasses (a copy of ``gaussianhaircut_tpu/config.py``).
+"""Configuration dataclasses and their argparse bridge (a copy of
+``gaussianhaircut_tpu/config.py``).
 
-Same field names and defaults as the JAX package, so a run configured for one
-translates 1:1 to the other.  The JAX package's ``raster_backend`` has no
-counterpart: the port's compositing route follows the tensors' device (the
-CUDA kernels for CUDA tensors, the plain PyTorch version for CPU tensors).
+Same field names, defaults and CLI flags as the JAX package, so a run
+configured for one translates 1:1 to the other, and ``cfg_args.json`` is
+written the same way.  Two JAX pipeline knobs have no counterpart and their
+flags are not accepted:
+
+- ``--raster_backend``: the port's compositing route follows the tensors'
+  device (the CUDA kernels for CUDA tensors, the plain PyTorch version for
+  CPU tensors);
+- ``--instance_capacity_mult``: the port's binning sizes its instance buffer
+  from ``num_rendered`` on every call, so there is no static capacity.
+
+``load_config`` ignores those two keys in a ``cfg_args.json`` the JAX
+package wrote.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+from argparse import ArgumentParser
 from dataclasses import dataclass
 
 
@@ -86,3 +100,72 @@ class PipelineConfig:
     debug: bool = False
     gaussian_capacity: int = 0              # 0 -> auto from init size
     tile: int = 32
+    data_parallel: int = 1                  # a JAX flag no stage-1 code reads
+
+
+def add_dataclass_args(parser: ArgumentParser, dc_type, shorthand: dict | None = None):
+    """Register dataclass fields as --flags (bools become store_true, as in
+    arguments/__init__.py:29-38)."""
+    shorthand = shorthand or {}
+    for f in dataclasses.fields(dc_type):
+        names = [f"--{f.name}"]
+        if f.name in shorthand:
+            names.append(shorthand[f.name])
+        if f.type in ("bool", bool):
+            parser.add_argument(*names, default=f.default, action="store_true")
+        else:
+            parser.add_argument(*names, default=f.default, type=type(f.default))
+    return parser
+
+
+_SHORTHANDS = {"source_path": "-s", "model_path": "-m", "images": "-i",
+               "resolution": "-r", "white_background": "-w"}
+
+
+def add_model_args(parser):
+    return add_dataclass_args(parser, ModelConfig, _SHORTHANDS)
+
+
+def add_optim_args(parser):
+    return add_dataclass_args(parser, OptimizationConfig)
+
+
+def add_pipeline_args(parser):
+    return add_dataclass_args(parser, PipelineConfig)
+
+
+def extract(dc_type, args):
+    """Build a dataclass from a parsed argparse Namespace."""
+    kwargs = {f.name: getattr(args, f.name) for f in dataclasses.fields(dc_type)
+              if hasattr(args, f.name)}
+    cfg = dc_type(**kwargs)
+    if isinstance(cfg, ModelConfig) and cfg.source_path:
+        cfg.source_path = os.path.abspath(cfg.source_path)
+    return cfg
+
+
+def save_config(model_path: str, model: ModelConfig, optim=None, pipe=None) -> None:
+    """Persist the configs as ``cfg_args.json`` (the reference's cfg_args,
+    train_gaussians.py:221-222), reloadable without eval()."""
+    os.makedirs(model_path, exist_ok=True)
+    blob = {"model": dataclasses.asdict(model)}
+    if optim is not None:
+        blob["optim"] = dataclasses.asdict(optim)
+    if pipe is not None:
+        blob["pipeline"] = dataclasses.asdict(pipe)
+    with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
+        json.dump(blob, f, indent=2)
+
+
+def _known(dc_type, d: dict) -> dict:
+    names = {f.name for f in dataclasses.fields(dc_type)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def load_config(model_path: str):
+    with open(os.path.join(model_path, "cfg_args.json")) as f:
+        blob = json.load(f)
+    model = ModelConfig(**_known(ModelConfig, blob["model"]))
+    optim = OptimizationConfig(**_known(OptimizationConfig, blob.get("optim", {})))
+    pipe = PipelineConfig(**_known(PipelineConfig, blob.get("pipeline", {})))
+    return model, optim, pipe

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ import torch
 from gaussianhaircut_torch.ops import sh as sh_ops
 from gaussianhaircut_torch.ops.knn import mean_knn_sq_dist
 from gaussianhaircut_torch.records import TensorRecord
+from gaussianhaircut_torch.scene import ply as ply_io
 
 
 def inverse_sigmoid(x: float) -> float:
@@ -150,6 +152,92 @@ def state_from_numpy(params: dict, aux: dict, active_sh_degree: int,
     a["alive"] = torch.as_tensor(np.array(aux["alive"], bool), device=device)
     return GaussianModelState(p, GaussianAux(**a), int(active_sh_degree),
                               int(max_sh_degree), float(spatial_lr_scale))
+
+
+# ---------------------------------------------------------------- PLY I/O ---
+
+def save_ply(state: GaussianModelState, path: str) -> None:
+    """Write raw_<name> (with label) and <name> (without label) next to each
+    other, as gaussian_model.py:479-514 does.  Only alive rows are
+    exported."""
+    p = state.params
+    idx = torch.nonzero(state.aux.alive)[:, 0]
+    rows = lambda t: t.detach()[idx].cpu().numpy()
+    xyz = rows(p.xyz)
+    n = xyz.shape[0]
+    f_dc = rows(p.features_dc).transpose(0, 2, 1).reshape(n, -1)
+    f_rest = rows(p.features_rest).transpose(0, 2, 1).reshape(n, -1)
+    opac, oconf, label = rows(p.opacity), rows(p.orient_conf), rows(p.label)
+    scale, rot = rows(p.scaling), rows(p.rotation)
+
+    def fields(with_label):
+        names = ["x", "y", "z", "nx", "ny", "nz"]
+        names += [f"f_dc_{i}" for i in range(f_dc.shape[1])]
+        names += [f"f_rest_{i}" for i in range(f_rest.shape[1])]
+        names += ["opacity", "orient_conf"]
+        if with_label:
+            names.append("label_0")
+        names += [f"scale_{i}" for i in range(3)] + [f"rot_{i}" for i in range(4)]
+        return names
+
+    def build(with_label):
+        cols = [xyz, np.zeros_like(xyz), f_dc, f_rest, opac, oconf]
+        if with_label:
+            cols.append(label)
+        cols += [scale, rot]
+        data = np.concatenate(cols, axis=1).astype(np.float32)
+        v = np.empty(n, dtype=[(f, "<f4") for f in fields(with_label)])
+        for i, f in enumerate(fields(with_label)):
+            v[f] = data[:, i]
+        return v
+
+    d = os.path.dirname(path)
+    name = os.path.basename(path)
+    ply_io.write_ply(os.path.join(d, f"raw_{name}"), build(True))
+    ply_io.write_ply(path, build(False))
+
+
+def load_ply(path: str, capacity: int, max_sh_degree: int,
+             spatial_lr_scale: float = 1.0, device=None) -> GaussianModelState:
+    """Load a (raw_)point_cloud.ply in the reference layout
+    (gaussian_model.py:521-579): rows past the file's are dead slots with
+    opacity -10 and rotation w = 1; a capacity below the row count becomes
+    the row count rounded up to 256.  All SH degrees are active."""
+    v = ply_io.read_ply(path)["vertex"]
+    n = len(v)
+    if capacity < n:
+        capacity = -(-n // 256) * 256
+    k = (max_sh_degree + 1) ** 2
+    names = v.dtype.names
+    col = lambda name: np.asarray(v[name], np.float32)[:, None]
+    stack = lambda fs: np.stack([v[f] for f in fs], -1).astype(np.float32)
+    zeros = np.zeros((n, 1), np.float32)
+
+    xyz = stack(["x", "y", "z"])
+    oconf = col("orient_conf") if "orient_conf" in names else zeros
+    label = col("label_0") if "label_0" in names else zeros
+    f_dc = stack([f"f_dc_{i}" for i in range(3)])[:, None, :]
+    rest_names = sorted((x for x in names if x.startswith("f_rest_")),
+                        key=lambda x: int(x.split("_")[-1]))
+    f_rest = (stack(rest_names).reshape(n, 3, k - 1).transpose(0, 2, 1)
+              if rest_names else np.zeros((n, k - 1, 3), np.float32))
+
+    def pad(x, fill=0.0):
+        return np.concatenate(
+            [x, np.full((capacity - n,) + x.shape[1:], fill, np.float32)], 0)
+
+    rot = pad(stack([f"rot_{i}" for i in range(4)]))
+    rot[n:, 0] = 1.0
+    params = {"xyz": pad(xyz), "features_dc": pad(f_dc), "features_rest": pad(f_rest),
+              "scaling": pad(stack([f"scale_{i}" for i in range(3)])),
+              "rotation": rot, "opacity": pad(col("opacity"), fill=-10.0),
+              "label": pad(label), "orient_conf": pad(oconf),
+              "viewspace": np.zeros((capacity, 3), np.float32)}
+    zero = np.zeros(capacity, np.float32)
+    aux = {"alive": np.arange(capacity) < n, "max_radii2d": zero,
+           "xyz_grad_accum": zero, "denom": zero}
+    return state_from_numpy(params, aux, max_sh_degree, max_sh_degree,
+                            spatial_lr_scale, device)
 
 
 # ------------------------------------------------------------- checkpoints --

@@ -1,16 +1,20 @@
-"""Wrappers of the two hand-written CUDA compositing kernels
-(``gaussianhaircut_torch/csrc/raster_{fwd,bwd}.cu``), the port of
-``gaussianhaircut_tpu/ops/rasterize/pallas_core.py``.
+"""Wrappers of the hand-written CUDA kernels of the rasterizer: the
+compositing forward and backward (``gaussianhaircut_torch/csrc/
+raster_{fwd,bwd}.cu``, the port of
+``gaussianhaircut_tpu/ops/rasterize/pallas_core.py``) and the forward's
+fixed-cost probe (``csrc/raster_probe.cu``, the port of
+``tools/tpu_profile_r4.py: _h_fixed_probe``).
 
 Build: each source is compiled by ``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared`` into its own shared library with a plain C
-interface (both compilers run at once), at first use, into
+interface (the compilers run at once), at first use, into
 ``gaussianhaircut_torch/csrc/build/`` (listed in ``.gitignore``); the
 libraries are loaded with ``ctypes``.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain PyTorch version from ``plain_core.py``.  Each launch adds one to
-``launches[name]``; nothing else touches the counts.
+``launches[name]``, keyed by the C entry point it calls; nothing else
+touches the counts.
 """
 from __future__ import annotations
 
@@ -28,12 +32,22 @@ from gaussianhaircut_torch.ops.rasterize import plain_core
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
-SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu"}
+SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
+           "raster_probe": "raster_probe.cu"}
+# C entry points: name -> (library, argument types before the stream); each
+# takes the stream last and returns cudaGetLastError()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRY_POINTS = {
+    "raster_fwd": ("raster_fwd", [_P] * 4 + [_I] * 5),
+    "raster_bwd": ("raster_bwd", [_P] * 6 + [_I] * 5),
+    "raster_probe": ("raster_probe", [_P] * 4 + [_I] * 3),
+    "raster_probe_grid_only": ("raster_probe", [_P] * 4 + [_I] * 3),
+}
 _HEADERS = ("raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-launches = {name: 0 for name in SOURCES}
+launches = {name: 0 for name in ENTRY_POINTS}
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 
@@ -94,10 +108,11 @@ def build(verbose: bool = False) -> dict[str, str]:
 
 def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(_lib_path(name))
-    fn = getattr(lib, name)
-    n_ptr = 4 if name == "raster_fwd" else 6
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for entry, (lib_name, argtypes) in ENTRY_POINTS.items():
+        if lib_name == name:
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes + [_P]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -127,13 +142,14 @@ def _check_layout(payload, chunk_start, nchunks, cfg):
             raise ValueError("kernel inputs lie on different devices")
 
 
-def _launch(name: str, *args) -> None:
-    if name not in _libs:
+def _launch(entry: str, *args) -> None:
+    lib_name = ENTRY_POINTS[entry][0]
+    if lib_name not in _libs:
         build()
-    err = getattr(_libs[name], name)(*args)
+    err = getattr(_libs[lib_name], entry)(*args)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    launches[name] += 1
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    launches[entry] += 1
 
 
 def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
@@ -181,3 +197,27 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
             dpay.data_ptr(), num_tiles, gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
             torch.cuda.current_stream(payload.device).cuda_stream)
     return dpay
+
+
+def raster_probe(payload: torch.Tensor, chunk_start: torch.Tensor,
+                 nchunks: torch.Tensor, cfg: C.RasterConfig,
+                 grid_only: bool = False) -> torch.Tensor:
+    """The forward's fixed-cost probe -> tile_buf [T, PIX, 16], every entry
+    of a tile the sum of payload row 0 over the tile's chunks.  With
+    ``grid_only`` the kernel stages and reads no payload (each entry is the
+    tile's chunk count); that variant runs on CUDA tensors only and has no
+    plain version: it is timed, not compared."""
+    if not payload.is_cuda:
+        if grid_only:
+            raise ValueError("raster_probe: the grid-only variant runs on "
+                             "CUDA tensors only")
+        return plain_core.raster_probe_plain(payload, chunk_start, nchunks, cfg)
+    _check_layout(payload, chunk_start, nchunks, cfg)
+    num_tiles = chunk_start.shape[0]
+    tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
+                           dtype=torch.float32, device=payload.device)
+    _launch("raster_probe_grid_only" if grid_only else "raster_probe",
+            payload.data_ptr(), chunk_start.data_ptr(), nchunks.data_ptr(),
+            tile_buf.data_ptr(), num_tiles, cfg.tile_pix, cfg.chunk,
+            torch.cuda.current_stream(payload.device).cuda_stream)
+    return tile_buf

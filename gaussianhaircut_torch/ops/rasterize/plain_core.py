@@ -94,6 +94,25 @@ def raster_fwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
                       walk.t[..., None]], dim=-1)
 
 
+def raster_probe_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
+                       nchunks: torch.Tensor, cfg: C.RasterConfig) -> torch.Tensor:
+    """The fixed-cost probe's result -> tile_buf [T, PIX, 16]: for each tile,
+    the sum over its chunks of payload row 0 summed over the lanes,
+    broadcast (tools/tpu_profile_r4.py:502-529).  Tiles without chunks
+    stay 0.  Summed in float64, so it is the reference the kernel's float32
+    sums are held against."""
+    num_tiles = chunk_start.shape[0]
+    nc = nchunks.long()
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=nc.device), nc)
+    first = torch.repeat_interleave(chunk_start.long() - (torch.cumsum(nc, 0) - nc), nc)
+    chunks = first + torch.arange(tile_of.shape[0], device=nc.device)
+    row_sum = payload[chunks, C.F_GX].to(torch.float64).sum(dim=1)
+    per_tile = torch.zeros(num_tiles, dtype=torch.float64, device=payload.device)
+    per_tile.index_add_(0, tile_of, row_sum)
+    return per_tile.to(torch.float32)[:, None, None].expand(
+        num_tiles, cfg.tile_pix, C.PAD_CHANNELS).contiguous()
+
+
 def raster_bwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
                      nchunks: torch.Tensor, tile_buf: torch.Tensor,
                      gbuf: torch.Tensor, width: int, height: int,

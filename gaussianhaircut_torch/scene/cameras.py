@@ -47,6 +47,19 @@ class CameraStatic:
         return np.concatenate([self.mask_hair, self.mask_body], axis=0)
 
 
+def world_to_view(R: np.ndarray, t: np.ndarray,
+                  translate=np.zeros(3), scale: float = 1.0) -> np.ndarray:
+    """Column-vector w2c from the reference's (R, T) storage, with the
+    recenter/rescale hook (graphics_utils.py:38-49).  The reference stores R
+    already transposed (camera-to-world rotation)."""
+    rt = np.eye(4)
+    rt[:3, :3] = R.T
+    rt[:3, 3] = t
+    c2w = np.linalg.inv(rt)
+    c2w[:3, 3] = (c2w[:3, 3] + translate) * scale
+    return np.linalg.inv(c2w).astype(np.float32)
+
+
 @dataclasses.dataclass
 class CameraResiduals(TensorRecord):
     """Trainable residuals stacked over N cameras."""

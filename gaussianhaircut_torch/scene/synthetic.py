@@ -1,14 +1,19 @@
 """The bench scene: a seeded Gaussian point blob seen by cameras on a ring,
 with random ground truth (the scene ``bench.py:36-99`` builds for the JAX
-package, rebuilt here so the port needs nothing of it)."""
+package, rebuilt here so the port needs nothing of it), and a writer that
+puts such a scene on disk in the COLMAP layout ``scene.dataset.load_scene``
+reads."""
 from __future__ import annotations
 
 import math
+import os
 import types
 
 import numpy as np
 
+from gaussianhaircut_torch.scene import colmap, ply
 from gaussianhaircut_torch.scene.cameras import CameraStatic
+from gaussianhaircut_torch.utils.image import save_image
 
 
 def bench_scene(num_points: int = 100_000, width: int = 960, height: int = 544,
@@ -39,3 +44,41 @@ def bench_scene(num_points: int = 100_000, width: int = 960, height: int = 544,
         cams.append(c)
     return types.SimpleNamespace(train_cameras=cams, points=pts, colors=cols,
                                  cameras_extent=1.0)
+
+
+def write_colmap_scene(scene, root: str, images: str = "images_2") -> None:
+    """Write ``scene`` (``train_cameras`` with ground truth, ``points``,
+    ``colors`` in [0, 1]) under ``root``: ``sparse/0/{cameras,images}.txt``
+    (PINHOLE, principal point at the centre) and ``sparse/0/points3D.ply``,
+    ``<images>/<name>.png``, ``masks_2/{hair,body}/<name>.png``,
+    ``orientations_2/angles/<name>.png`` (degrees) and
+    ``orientations_2/vars/<name>.npy`` (the variance whose confidence
+    ``load_view_gt`` computes is the camera's ``orient_conf``).  Images are
+    stored as 8-bit PNGs, so the loaded ground truth is the scene's
+    quantized to 1/255 (angles to 1/180)."""
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    cams, imgs = {}, {}
+    for i, c in enumerate(scene.train_cameras):
+        fx = c.width / (2 * math.tan(c.fovx / 2))
+        fy = c.height / (2 * math.tan(c.fovy / 2))
+        cams[i + 1] = colmap.ColmapCamera(i + 1, "PINHOLE", c.width, c.height,
+                                          np.array([fx, fy, c.width / 2, c.height / 2]))
+        w2c = np.asarray(c.colmap_transform, np.float64)
+        imgs[i + 1] = colmap.ColmapImage(i + 1, colmap.rotmat_to_qvec(w2c[:3, :3]),
+                                         w2c[:3, 3], i + 1, f"{c.image_name}.png")
+        name = f"{c.image_name}.png"
+        save_image(c.image, os.path.join(root, images, name))
+        save_image(c.mask_hair, os.path.join(root, "masks_2", "hair", name))
+        save_image(c.mask_body, os.path.join(root, "masks_2", "body", name))
+        save_image(c.orient_angle * (180.0 / 255.0),
+                   os.path.join(root, "orientations_2", "angles", name))
+        var = math.pi ** 2 * np.sqrt(np.maximum(1.0 / c.orient_conf[0] - 1e-7, 0.0))
+        os.makedirs(os.path.join(root, "orientations_2", "vars"), exist_ok=True)
+        np.save(os.path.join(root, "orientations_2", "vars", f"{c.image_name}.npy"),
+                var.astype(np.float32))
+    colmap.write_cameras_text(os.path.join(sparse, "cameras.txt"), cams)
+    colmap.write_images_text(os.path.join(sparse, "images.txt"), imgs)
+    ply.store_point_cloud(os.path.join(sparse, "points3D.ply"),
+                          np.asarray(scene.points, np.float64),
+                          np.asarray(scene.colors, np.float64) * 255.0)

@@ -11,13 +11,16 @@ Loss stack (train_gaussians.py:120-140):
        + lambda_dmask * L1(mask2, gt_mask2)
        + lambda_dorient * OR(orient_angle | conf, weighted by gt conf, hair-mask)
 
-This slice ports the single-camera step and the loop around it.  The CLI,
-evaluation, PLY/checkpoint saving and camera pickles come with the next
-slice; the batched-camera and mesh steps are not ported.
+Ported: the single-camera step, the loop around it, evaluation, PLY and
+npz checkpoints (the JAX package's key names, so each package reads the
+other's) and the camera pickles stages 2 and 3 read.  The batched-camera and
+mesh steps are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 import random
 
 import numpy as np
@@ -32,9 +35,8 @@ from gaussianhaircut_torch.ops.ssim import ssim
 from gaussianhaircut_torch.render.renderer import default_background, render
 from gaussianhaircut_torch.scene.cameras import CameraBatch, CameraResiduals, camera_geom
 from gaussianhaircut_torch.train import densify, optim
-
-_LATER_SLICE = ("comes with the next slice of the port (the stage-1 CLI, "
-                "evaluation, PLY/checkpoint saving and camera pickles)")
+from gaussianhaircut_torch.utils.image import vis_orient
+from gaussianhaircut_torch.utils.logger import MetricsLogger
 
 
 @dataclasses.dataclass
@@ -262,21 +264,146 @@ def train_state_from_numpy(params: dict, aux: dict, opt_mu: dict, opt_nu: dict,
         step=int(step))
 
 
+def evaluate(state: TrainState, cams, cam_batch: CameraBatch, gt: GtBatch,
+             indices, *, active_sh_degree, width, height, raster_cfg,
+             model_cfg: ModelConfig, name="test", logger=None, iteration=0,
+             log_gt=False) -> dict:
+    """In-training eval over a camera set: mean L1 / mask L1 / orientation
+    loss / PSNR (the training_report loop, train_gaussians.py:241-287).
+    With ``logger``, the first <=5 views' render, mask and orientation
+    images go to the image log (train_gaussians.py:264-272; the GT grids
+    too when ``log_gt``).  One render (one forward-kernel launch) per view:
+    the logged images come from the render that was scored."""
+    device = state.model.params.xyz.device
+    bg = default_background(model_cfg.white_background, device)
+    totals = np.zeros(4)
+    with torch.no_grad():
+        for vi, i in enumerate(indices):
+            cam = camera_geom(cam_batch.colmap_transform[i], cam_batch.fovx[i],
+                              cam_batch.fovy[i], width, height, state.cam_res, i,
+                              use_barf=model_cfg.use_barf,
+                              trainable_cameras=model_cfg.trainable_cameras,
+                              trainable_intrinsics=model_cfg.trainable_intrinsics)
+            out = render(state.model.params, state.model.aux.alive,
+                         active_sh_degree, cam, bg, raster_cfg)
+            img = torch.clamp(out["render"], 0.0, 1.0)
+            mask = torch.clamp(out["mask"], 0.0, 1.0)
+            angle = torch.clamp(out["orient_angle"], 0.0, 1.0)
+            gt_img = torch.clamp(gt.image[i], 0.0, 1.0)
+            gt_mask = torch.clamp(gt.mask[i], 0.0, 1.0)
+            totals += torch.stack([
+                L.l1_loss(img, gt_img), L.l1_loss(mask, gt_mask),
+                L.or_loss(angle, gt.orient_angle[i], mask=gt_mask[:1],
+                          weight=gt.orient_conf[i]),
+                L.psnr(img, gt_img)]).cpu().numpy()
+            if logger is not None and vi < 5:
+                img, mask, angle, oconf = (t.cpu().numpy() for t in (
+                    img, mask, angle, out["orient_conf"]))
+                vn = cams[i].image_name
+                conf_vis = (1.0 - 1.0 / (oconf + 1.0)) * mask[:1]
+                logger.images(
+                    iteration,
+                    **{f"{name}_view_{vn}/render": img,
+                       f"{name}_view_{vn}/render_mask": mask,
+                       f"{name}_view_{vn}/render_orient": vis_orient(angle, mask[:1]),
+                       f"{name}_view_{vn}/render_orient_conf": vis_orient(angle, conf_vis)})
+                if log_gt:
+                    g_img, g_mask, g_angle, g_conf = (t[i].cpu().numpy() for t in (
+                        gt.image, gt.mask, gt.orient_angle, gt.orient_conf))
+                    gt_conf_vis = (1.0 - 1.0 / (g_conf + 1.0)) * g_mask[:1]
+                    logger.images(
+                        iteration,
+                        **{f"{name}_view_{vn}/ground_truth": g_img,
+                           f"{name}_view_{vn}/ground_truth_mask": g_mask,
+                           f"{name}_view_{vn}/ground_truth_orient":
+                               vis_orient(g_angle, g_mask[:1]),
+                           f"{name}_view_{vn}/ground_truth_orient_conf":
+                               vis_orient(g_angle, gt_conf_vis)})
+    totals /= max(len(indices), 1)
+    return {f"{name}_l1": totals[0], f"{name}_ce": totals[1],
+            f"{name}_or": totals[2], f"{name}_psnr": totals[3]}
+
+
+def save_checkpoint(state: TrainState, path: str) -> None:
+    """npz checkpoint: model capture + optimizer moments + camera residuals
+    (train_gaussians.py:198-208), under the JAX package's key names."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np_ = lambda t: t.detach().cpu().numpy()
+    blob = gm.capture(state.model)
+    for rec, prefix in ((state.opt.mu, "opt.mu"), (state.opt.nu, "opt.nu"),
+                        (state.cam_res, "cam_res"), (state.cam_opt.mu, "cam_opt.mu"),
+                        (state.cam_opt.nu, "cam_opt.nu")):
+        for k, v in zip(rec.names(), rec.values()):
+            blob[f"{prefix}.{k}"] = np_(v)
+    blob["opt.count"] = np_(state.opt.count)
+    blob["cam_opt.count"] = np_(state.cam_opt.count)
+    blob["step"] = np.asarray(state.step, np.int32)
+    np.savez(path, **blob)
+
+
+def load_checkpoint(path: str, device=None) -> TrainState:
+    """A checkpoint written by ``save_checkpoint`` of either package."""
+    with np.load(path) as z:
+        d = dict(z)
+    sub = lambda pre: {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)}
+    return train_state_from_numpy(
+        sub("params."), sub("aux."), sub("opt.mu."), sub("opt.nu."), d["opt.count"],
+        sub("cam_res."), sub("cam_opt.mu."), sub("cam_opt.nu."), d["cam_opt.count"],
+        int(d["step"]), active_sh_degree=int(d["active_sh_degree"]),
+        max_sh_degree=int(d["max_sh_degree"]),
+        spatial_lr_scale=float(d["spatial_lr_scale"]), device=resolve_device(device))
+
+
+def save_camera_pickles(state: TrainState, cams, cam_batch: CameraBatch,
+                        model_path: str, iteration: int, use_barf: bool,
+                        width: int, height: int) -> None:
+    """cameras/{iter}.pkl + {iter}_matrices.pkl, the contract with FLAME
+    fitting and stages 2 and 3 (train_gaussians.py:203-208).  They hold
+    numpy arrays, never tensors."""
+    os.makedirs(os.path.join(model_path, "cameras"), exist_ok=True)
+    res = state.cam_res.map(lambda t: t.detach().cpu().numpy())
+    rot = {c.image_name: np.array(res.rotation[i]) for i, c in enumerate(cams)}
+    trans = {c.image_name: np.array(res.translation[i]) for i, c in enumerate(cams)}
+    fov = {c.image_name: np.array(res.fov[i]) for i, c in enumerate(cams)}
+    with open(os.path.join(model_path, "cameras", f"{iteration}.pkl"), "wb") as f:
+        pickle.dump((rot, trans, fov), f)
+    matrices = {}
+    with torch.no_grad():
+        for i, c in enumerate(cams):
+            geom = camera_geom(cam_batch.colmap_transform[i], cam_batch.fovx[i],
+                               cam_batch.fovy[i], width, height, state.cam_res, i,
+                               use_barf=use_barf)
+            matrices[c.image_name] = geom.projmatrix.cpu().numpy()
+    with open(os.path.join(model_path, "cameras", f"{iteration}_matrices.pkl"), "wb") as f:
+        pickle.dump(matrices, f)
+
+
 def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
-          pipe_cfg: PipelineConfig, scene, *, test_iterations=(),
-          save_iterations=(), checkpoint_iterations=(), start_checkpoint=None,
+          pipe_cfg: PipelineConfig, scene, *,
+          test_iterations=(1000, 5000, 15000, 30000),
+          save_iterations=(1000, 5000, 15000, 30000),
+          checkpoint_iterations=(30000,), start_checkpoint=None,
           progress_callback=None, mesh_spec: str = "", camera_batch: int = 1,
           device=None, seed: int = 0) -> TrainState:
     """Host-side training loop (train_gaussians.py:78-208).
 
     ``scene`` holds ``train_cameras`` (scene.cameras.CameraStatic with
-    ground truth), ``points``, ``colors`` and ``cameras_extent``.  Runs on
-    CUDA unless ``device="cpu"`` is passed.  Camera draws follow the JAX
-    package (``random.Random(0)`` epochs); the split samples of densification
-    come from a ``torch.Generator`` seeded with ``seed``."""
-    if test_iterations or save_iterations or checkpoint_iterations \
-            or start_checkpoint or model_cfg.model_path:
-        raise NotImplementedError("evaluation, saving and logging " + _LATER_SLICE)
+    ground truth), ``points``, ``colors`` and ``cameras_extent``, and may
+    hold ``test_cameras``.  Runs on CUDA unless ``device="cpu"`` is passed.
+    Camera draws follow the JAX package (``random.Random(0)`` epochs); the
+    split samples of densification come from a ``torch.Generator`` seeded
+    with ``seed``.
+
+    With ``model_cfg.model_path`` set, every 10 iterations the losses,
+    ``num_rendered``, ``num_alive`` and a loss EMA go to ``metrics.jsonl``;
+    at ``test_iterations`` the evaluation report and the opacity / label
+    histograms too; ``save_iterations`` write ``point_cloud/iteration_<i>/
+    (raw_)point_cloud.ply`` and ``checkpoint_iterations`` write
+    ``checkpoints/<i>.npz`` and the camera pickles.  The JAX package also
+    logs ``instance_occupancy`` against its static instance buffer; the
+    port's binning sizes that buffer from ``num_rendered`` on every call, so
+    there is no occupancy to log.  ``start_checkpoint`` resumes from a
+    checkpoint of either package, with its slot capacity."""
     if mesh_spec or camera_batch != 1:
         raise NotImplementedError("only the single-camera step is ported; "
                                   "mesh and batched-camera steps are not")
@@ -288,17 +415,24 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     cam_batch = CameraBatch.from_cameras(cams, device)
     gt = GtBatch.from_cameras(cams, device)
 
-    capacity = pipe_cfg.gaussian_capacity or max(
-        1 << (len(scene.points) * 4 - 1).bit_length(), 1 << 17)
-    model_state = gm.create_from_pcd(scene.points, scene.colors, capacity,
-                                     model_cfg.sh_degree, scene.cameras_extent,
-                                     device)
-    state = init_train_state(model_state, len(cams), model_cfg.use_barf)
+    if start_checkpoint:
+        state = load_checkpoint(start_checkpoint, device)
+    else:
+        capacity = pipe_cfg.gaussian_capacity or max(
+            1 << (len(scene.points) * 4 - 1).bit_length(), 1 << 17)
+        model_state = gm.create_from_pcd(scene.points, scene.colors, capacity,
+                                         model_cfg.sh_degree, scene.cameras_extent,
+                                         device)
+        state = init_train_state(model_state, len(cams), model_cfg.use_barf)
+    capacity = state.model.capacity
     raster_cfg = RasterConfig(tile_w=pipe_cfg.tile, tile_h=pipe_cfg.tile)
+    logger = MetricsLogger(model_cfg.model_path) if model_cfg.model_path else None
+    test_cams = getattr(scene, "test_cameras", None) or []
     rng = random.Random(0)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     stack: list[int] = []
+    ema = 0.0
     warned_slots = False
     for iteration in range(state.step + 1, opt_cfg.iterations + 1):
         sh_deg = min(iteration // 1000, model_cfg.sh_degree)
@@ -331,6 +465,53 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     model_cfg.white_background
                     and iteration == opt_cfg.densify_from_iter):
                 state = opacity_reset_step(state)
+
+        if logger and iteration % 10 == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            ema = 0.4 * m["total"] + 0.6 * ema
+            logger.scalars(iteration, ema=ema,
+                           num_alive=float(state.model.num_alive()), **m)
         if progress_callback:
             progress_callback(iteration, state, metrics)
+
+        if iteration in test_iterations:
+            # training_report (train_gaussians.py:241-293): the test split
+            # and a fixed sample of train views, image grids of the first
+            # <=5 views, opacity / label histograms, total_points
+            first_test = iteration == min(test_iterations)
+            ev = dict(active_sh_degree=sh_deg, raster_cfg=raster_cfg,
+                      model_cfg=model_cfg, logger=logger, iteration=iteration,
+                      log_gt=first_test)
+            report = {}
+            if test_cams and test_cams[0].image is not None:
+                report.update(evaluate(
+                    state, test_cams, CameraBatch.from_cameras(test_cams, device),
+                    GtBatch.from_cameras(test_cams, device), range(len(test_cams)),
+                    width=test_cams[0].width, height=test_cams[0].height,
+                    name="test", **ev))
+            train_sample = [i % len(cams) for i in range(5, 30, 5)]
+            report.update(evaluate(state, cams, cam_batch, gt, train_sample,
+                                   width=width, height=height, name="train", **ev))
+            msg = "  ".join(f"{k} {v:.5f}" for k, v in report.items())
+            print(f"\n[ITER {iteration}] Evaluating: {msg}")
+            if logger:
+                logger.scalars(iteration, **report,
+                               total_points=float(state.model.num_alive()))
+                alive = state.model.aux.alive
+                for name, fn in (("opacity", gm.get_opacity), ("label", gm.get_label)):
+                    logger.histogram(iteration, f"scene/{name}_histogram",
+                                     fn(state.model.params)[alive].detach().cpu().numpy())
+
+        if iteration in save_iterations and model_cfg.model_path:
+            gm.save_ply(state.model, os.path.join(
+                model_cfg.model_path, f"point_cloud/iteration_{iteration}",
+                "point_cloud.ply"))
+        if iteration in checkpoint_iterations and model_cfg.model_path:
+            save_checkpoint(state, os.path.join(
+                model_cfg.model_path, "checkpoints", f"{iteration}.npz"))
+            save_camera_pickles(state, cams, cam_batch, model_cfg.model_path,
+                                iteration, model_cfg.use_barf, width, height)
+
+    if logger:
+        logger.close()
     return state

@@ -1,0 +1,177 @@
+"""Image helpers: an 8-bit PNG reader and writer on ``zlib``, ``struct`` and
+numpy, PNG save of float maps, and the orientation / depth visualisations
+(a copy of ``gaussianhaircut_tpu/utils/image.py``; reference
+image_utils.py:22-42).
+
+The PNG codec covers what the pipeline reads and writes: 8-bit gray, gray +
+alpha, RGB and RGBA, non-interlaced.  The reader undoes all five row filters
+and returns the array PIL's ``np.asarray(Image.open(path))`` gives: [H, W]
+for gray, [H, W, C] otherwise.  The writer stores every row unfiltered.
+"""
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}          # PNG colour type -> channels
+_COLOR_TYPE = {c: t for t, c in _CHANNELS.items()}
+
+
+def _chunks(path: str):
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        yield kind, data[pos + 8:pos + 8 + length]
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
+
+
+def _header(path: str, ihdr: bytes):
+    w, h, depth, ctype, _comp, _filt, interlace = struct.unpack(">IIBBBBB", ihdr)
+    if depth != 8 or ctype not in _CHANNELS:
+        raise NotImplementedError(
+            f"{path}: PNG bit depth {depth}, colour type {ctype}; only 8-bit "
+            "gray, gray + alpha, RGB and RGBA are read")
+    if interlace:
+        raise NotImplementedError(f"{path}: interlaced PNG")
+    return w, h, _CHANNELS[ctype]
+
+
+def png_size(path: str) -> tuple[int, int]:
+    """(width, height) from the header, as PIL's ``Image.open(p).size``."""
+    kind, ihdr = next(_chunks(path))
+    if kind != b"IHDR":
+        raise ValueError(f"{path}: PNG does not start with IHDR")
+    w, h, _ = _header(path, ihdr)
+    return w, h
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of ``raw`` [h, 1 + w * bpp] -> [h, w, bpp].
+
+    Rows filtered with None, Sub or Up only are undone row by row.  Average
+    and Paeth make a pixel depend on the one left of it, so with either
+    present the pixels are reconstructed by anti-diagonals (x + y = d): all
+    of a diagonal's inputs (left, up, up-left) lie on the two before it."""
+    ftype = raw[:, 0]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"unknown PNG row filter {int(ftype.max())}")
+    filt = raw[:, 1:].reshape(h, w, bpp)
+    if not np.isin(ftype, (3, 4)).any():
+        out = np.empty((h, w, bpp), np.uint8)
+        prev = np.zeros((w, bpp), np.uint8)
+        for y in range(h):
+            row = filt[y]
+            if ftype[y] == 1:
+                row = np.cumsum(row, axis=0, dtype=np.uint8)
+            elif ftype[y] == 2:
+                row = row + prev
+            out[y] = prev = row
+        return out
+    # padded: out[y + 1, x + 1] is pixel (y, x); row 0 and column 0 are zero
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)
+    vals = filt.astype(np.int32)
+    ft = ftype.astype(np.int32)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h, d + 1))
+        xs = d - ys
+        a = out[ys + 1, xs]          # left
+        b = out[ys, xs + 1]          # up
+        c = out[ys, xs]              # up-left
+        f = ft[ys][:, None]
+        pred = np.where(f == 1, a, np.where(f == 2, b, np.where(
+            f == 3, (a + b) >> 1, np.where(f == 4, _paeth(a, b, c), 0))))
+        out[ys + 1, xs + 1] = (vals[ys, xs] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """8-bit PNG -> uint8 [H, W] (gray) or [H, W, C] (gray + alpha, RGB,
+    RGBA)."""
+    header, idat = None, []
+    for kind, body in _chunks(path):
+        if kind == b"IHDR":
+            header = _header(path, body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, ch = header
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * ch):
+        raise ValueError(f"{path}: PNG data holds {raw.size} bytes, expected "
+                         f"{h * (1 + w * ch)}")
+    img = _unfilter(raw.reshape(h, 1 + w * ch), h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """uint8 [H, W] or [H, W, C] (C = 1, 2, 3, 4) -> 8-bit PNG, rows
+    unfiltered."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png: expected uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    if ch not in _COLOR_TYPE:
+        raise ValueError(f"write_png: {ch} channels")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(img).reshape(h, w * ch)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[ch], 0, 0, 0)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def save_image(arr, path: str) -> None:
+    """[C, H, W] or [H, W] float in [0,1] -> 8-bit PNG."""
+    arr = np.asarray(arr)
+    if arr.ndim == 3:
+        arr = arr.transpose(1, 2, 0)
+        if arr.shape[-1] == 1:
+            arr = arr[..., 0]
+    write_png(path, (np.clip(arr, 0, 1) * 255).round().astype(np.uint8))
+
+
+def vis_orient(orient_angle, mask):
+    """Orientation color wheel (red=vertical, green=horizontal,
+    magenta/teal=diagonals), angles in [0,1] ~ [0, pi)."""
+    deg = np.asarray(orient_angle) * 180.0
+    red = np.clip(1 - np.abs(deg - 0.0) / 45.0, 0, 1) + np.clip(1 - np.abs(deg - 180.0) / 45.0, 0, 1)
+    green = np.clip(1 - np.abs(deg - 90.0) / 45.0, 0, 1)
+    magenta = np.clip(1 - np.abs(deg - 45.0) / 45.0, 0, 1)
+    teal = np.clip(1 - np.abs(deg - 135.0) / 45.0, 0, 1)
+    r = red + magenta
+    g = green + teal
+    b = magenta + teal
+    rgb = np.concatenate([r, g, b], axis=0)
+    return np.clip(rgb, 0, 1) * np.asarray(mask)
+
+
+def vis_depth(depth):
+    d = np.log(np.asarray(depth) + 1)
+    return (d - d.min()) / max(d.max() - d.min(), 1e-9)

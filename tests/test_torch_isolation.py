@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``gaussianhaircut_torch`` (nor
-``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``; a CPU step
-runs with JAX unimportable; the entry points never pick the CPU on their own;
-and the kernel wrappers keep CUDA tensors away from the plain versions."""
+``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``, nor a
+package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV);
+a CPU step and the stage-1 CLIs run with all of those unimportable; the
+entry points never pick the CPU on their own; and the kernel wrappers keep
+CUDA tensors away from the plain versions."""
 import ast
 import os
 import subprocess
@@ -14,6 +16,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "gaussianhaircut_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "gaussianhaircut_tpu")
+# not installed on the GPU machine
+ABSENT_ON_CARD = ("PIL", "tensorboard", "plyfile", "imageio", "cv2")
 
 
 def _port_sources():
@@ -23,24 +27,32 @@ def _port_sources():
     return sorted(out)
 
 
-@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
-def test_source_imports_no_jax(path):
+def _imported_modules(path):
     with open(path) as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
+            yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        else:
-            continue
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_jax(path):
+    for name in _imported_modules(path):
+        assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_nothing_the_card_lacks(path):
+    for name in _imported_modules(path):
+        assert not set(name.split(".")) & set(ABSENT_ON_CARD), f"{path} imports {name}"
 
 
 _SCRIPT = textwrap.dedent("""
-    import importlib, math, pkgutil, sys, types
-    for name in ("jax", "jaxlib", "flax"):
+    import importlib, math, os, pkgutil, sys, tempfile, types
+    for name in ("jax", "jaxlib", "flax", "PIL", "tensorboard",
+                 "torch.utils.tensorboard", "plyfile", "imageio", "cv2"):
         sys.modules[name] = None          # any import of them now fails
     import numpy as np
     import torch
@@ -71,7 +83,21 @@ _SCRIPT = textwrap.dedent("""
                  PipelineConfig(gaussian_capacity=64), scene, device="cpu",
                  progress_callback=lambda it, st, m: losses.append(float(m["total"])))
     assert len(losses) == 1 and math.isfinite(losses[0]), losses
-    assert cuda_core.launches == {"raster_fwd": 0, "raster_bwd": 0}
+
+    # the stage-1 CLIs on a one-view scene written to disk
+    from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
+    from gaussianhaircut_torch.scene.synthetic import bench_scene, write_colmap_scene
+    root = tempfile.mkdtemp()
+    src, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    write_colmap_scene(bench_scene(50, 32, 32, 1), src)
+    state = train_gaussians.main(
+        ["-s", src, "-m", model, "--device", "cpu", "--sh_degree", "1",
+         "--gaussian_capacity", "64", "--iterations", "1", "--test_iterations", "1",
+         "--save_iterations", "1", "--checkpoint_iterations", "1"])
+    assert state.step == 1
+    render_gaussians.main(["-s", src, "-m", model, "--device", "cpu", "--sh_degree", "1"])
+    assert len(os.listdir(os.path.join(model, "train", "ours_1", "renders"))) == 1
+    assert all(n == 0 for n in cuda_core.launches.values()), cuda_core.launches
 
     # with no device and no CUDA, train() raises instead of using the CPU
     torch.cuda.is_available = lambda: False
@@ -83,7 +109,7 @@ _SCRIPT = textwrap.dedent("""
     else:
         raise AssertionError("train() without a device ran without CUDA")
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("gaussianhaircut_tpu", "jax", "flax")
+                    if m.split(".")[0] in ("gaussianhaircut_tpu", "jax", "flax", "PIL")
                     and sys.modules[m] is not None)
     assert not loaded, loaded
     print("ISOLATED")
@@ -128,7 +154,10 @@ def test_kernel_checks_reject_cpu_tensors():
         cuda_core._check("payload", torch.zeros(1, 24, 256), torch.float32)
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """No device given means CUDA: without it resolve_device and both CLIs
+    raise (before reading any scene) instead of running on the CPU."""
+    from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
     from gaussianhaircut_torch.device import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -136,3 +165,6 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    for main in (train_gaussians.main, render_gaussians.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "model")])

@@ -219,3 +219,36 @@ def test_backward_is_bit_reproducible(scene, tcfg):
     _, g2 = _torch_loss_grads(scene, tcfg)
     for a, b in zip(g1, g2):
         np.testing.assert_array_equal(a, b)
+
+
+def test_plain_probe_matches_tpu_probe_statement(jax_binned, tcfg):
+    """The fixed-cost probe's plain version against a numpy statement of
+    tools/tpu_profile_r4.py:502-529 (that script cannot run here: it
+    profiles at import and calls a stale pallas_core signature): every
+    entry of tile t is the sum over t's chunks of payload row 0 summed over
+    the lanes; a tile without chunks stays 0.  The CPU wrapper routes to the
+    plain version and counts no launch; the grid-only variant has no plain
+    version.  Tolerance: float64 plain sums rounded once to float32."""
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    payload, cs, nc = _torch_layout(jax_binned)
+    tof = np.asarray(jax_binned.tile_of_chunk)
+    kit = np.asarray(jax_binned.chunk_in_tile)
+    pay = np.asarray(jax_binned.payload).astype(np.float64)
+    nc_empty = nc.clone()
+    nc_empty[1] = 0                       # drop one tile's chunks
+    for n_chunks in (nc, nc_empty):
+        want = np.zeros((jax_binned.num_tiles, tcfg.tile_pix, 16))
+        for c in range(len(tof)):
+            t = int(tof[c])
+            if kit[c] >= 0 and kit[c] < int(n_chunks[t]):
+                want[t] += pay[c, 0].sum()
+        got = plain_core.raster_probe_plain(payload, cs, n_chunks, tcfg)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+    assert (want[1] == 0).all() and (got.numpy()[nc.numpy() > 0] != 0).any()
+    before = dict(cuda_core.launches)
+    routed = cuda_core.raster_probe(payload, cs, nc, tcfg)
+    np.testing.assert_array_equal(
+        routed.numpy(), plain_core.raster_probe_plain(payload, cs, nc, tcfg).numpy())
+    assert cuda_core.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cuda_core.raster_probe(payload, cs, nc, tcfg, grid_only=True)

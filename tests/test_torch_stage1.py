@@ -237,3 +237,24 @@ def test_restore_reads_jax_capture(toy):
     for key, ref in j_gm.capture(jms).items():
         np.testing.assert_allclose(ours[key], np.asarray(ref), rtol=1e-6, atol=1e-6,
                                    err_msg=key)
+
+
+def test_resume_keeps_the_checkpoint_capacity(toy, tmp_path):
+    """A run resumed from a checkpoint takes its slot capacity from the
+    checkpoint, not from the pipeline config: densification after the
+    resume draws split samples of the loaded state's capacity."""
+    scene = types.SimpleNamespace(train_cameras=toy.tcams, points=toy.pts,
+                                  colors=toy.cols, cameras_extent=toy.extent)
+    model_cfg = ModelConfig(sh_degree=1, model_path=str(tmp_path))
+    stage1.train(model_cfg, OptimizationConfig(iterations=2, **OPT),
+                 PipelineConfig(tile=32, gaussian_capacity=CAP), scene,
+                 test_iterations=(), save_iterations=(), checkpoint_iterations=(2,),
+                 device="cpu")
+    opt = OptimizationConfig(iterations=4, densify_from_iter=2,
+                             densification_interval=1, **OPT)
+    state = stage1.train(ModelConfig(sh_degree=1), opt,
+                         PipelineConfig(tile=32, gaussian_capacity=2 * CAP), scene,
+                         test_iterations=(), save_iterations=(), checkpoint_iterations=(),
+                         start_checkpoint=str(tmp_path / "checkpoints" / "2.npz"),
+                         device="cpu")
+    assert state.step == 4 and state.model.capacity == CAP
