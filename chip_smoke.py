@@ -11,7 +11,8 @@ degree 3, four views, BARF camera residuals trainable, 32x32 tiles, chunk
 1. env          -- requires CUDA; prints the card's name and power limit;
 2. build        -- compiles the CUDA kernels from the checkout's sources;
 3. kernel_fwd   -- the compositing forward kernel against its plain PyTorch
-                   version on camera 0 of the bench scene;
+                   version on camera 0 of the bench scene (bit for bit), and
+                   the card's per-warp cull masks against their plain mirror;
 4. kernel_probe -- the forward's fixed-cost probe against its plain version
                    on the same layout, then the profiling path
                    (``tools/profile_fixed.measure``): forward, probe and
@@ -38,6 +39,7 @@ card.
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +113,40 @@ def hold_dpay(got, plain, rtol: float = 1e-3, atol_frac: float = 1e-4) -> dict:
             for group, rows in DPAY_ROWS.items()}
 
 
+def ptxas_summary(logs: dict) -> dict:
+    """Registers and spill bytes of every kernel, from ``-Xptxas -v``."""
+    out, name = {}, None
+    for line in "\n".join(logs.values()).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def cull_stats(binned, width, height, cfg) -> dict:
+    """The card's per-warp cull masks on a layout, held against their plain
+    mirror on the same payload, and the (instance, warp) pairs they keep
+    over the used chunks' total."""
+    from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
+    lay = (binned.payload, binned.chunk_start, binned.nchunks)
+    card = cuda_core.warp_masks(*lay, width, height, cfg)
+    plain = plain_core.warp_masks_plain(*lay, width, cfg)
+    mismatched = int((card != plain).sum())
+    require(mismatched == 0, f"cull: {mismatched} of the card's warp masks differ "
+            "from the plain mirror's")
+    nwarps = cfg.tile_pix // 32
+    kept = sum(int(((card >> w) & 1).sum()) for w in range(nwarps))
+    total = int(binned.nchunks.sum()) * cfg.chunk * nwarps
+    return {"pairs_kept": kept, "pairs_total": total, "kept_share": kept / total,
+            "masks_mismatched": mismatched}
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
@@ -172,9 +208,10 @@ def main() -> int:
     logs = cuda_core.build(verbose=True)
     build_s = time.perf_counter() - t0
     if "build" in phases:
-        ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        emit({"phase": "build", "seconds": round(build_s, 3), "ptxas": ptxas})
+        emit({"phase": "build", "seconds": round(build_s, 3),
+              "ptxas": ptxas_summary(logs),
+              "blocks_per_sm": {name: cuda_core.blocks_per_sm(name, cfg)
+                                for name in cuda_core.SOURCES}})
 
     from gaussianhaircut_torch.scene.synthetic import bench_scene
     scene = bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED)
@@ -186,23 +223,30 @@ def main() -> int:
         binned, _ = binned_inputs(model.params, model.aux.alive, 3, scene,
                                   0, cfg, dev)
         lay = (binned.payload, binned.chunk_start, binned.nchunks)
+        order = binned.tile_order
         used_chunks = int(binned.nchunks.sum())
         in_bytes = used_chunks * 16 * cfg.chunk * 4 + 2 * binned.num_tiles * 4
         buf_bytes = binned.num_tiles * cfg.tile_pix * C.PAD_CHANNELS * 4
         stats = {}
         plain_buf = plain_core.raster_fwd_plain(*lay, WIDTH, HEIGHT, cfg, stats=stats)
-        fwd_tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
+        fwd_tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg, tile_order=order)
         torch.cuda.synchronize()
+        culled = cull_stats(binned, WIDTH, HEIGHT, cfg)
 
     if "kernel_fwd" in phases:
+        # the cull skips only pairs that can neither blend nor stop a pixel,
+        # so the kernel's tile buffer is the plain version's bit for bit
         err = (fwd_tile_buf - plain_buf).abs().amax(dim=(0, 1))
         err_col = float(torch.cat([err[:9], err[15:16]]).max())
         err_depth = float(err[9])
         done_mismatch = int((fwd_tile_buf[..., C.CH_DONE] != plain_buf[..., C.CH_DONE]).sum())
         require(bool(torch.isfinite(fwd_tile_buf).all()), "forward kernel: non-finite output")
-        require(err_col <= 1e-4, f"forward kernel: colour/T error {err_col} > 1e-4")
-        require(err_depth <= 1e-3, f"forward kernel: depth error {err_depth} > 1e-3")
-        ms = cuda_ms(lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg), REPS)
+        require(torch.equal(fwd_tile_buf, plain_buf),
+                f"forward kernel: not bit-identical to its plain version (colour/T "
+                f"error {err_col}, depth error {err_depth}, {done_mismatch} done-latch "
+                "mismatches)")
+        ms = cuda_ms(lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg,
+                                                  tile_order=order), REPS)
         plain_ms = cuda_ms(lambda: plain_core.raster_fwd_plain(
             *lay, WIDTH, HEIGHT, cfg), REPS)
         ops = stats["visited"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_FWD
@@ -213,7 +257,8 @@ def main() -> int:
               "tiles": binned.num_tiles, "chunks_used": used_chunks,
               "pairs_visited": stats["visited"], "pairs_blended": stats["contrib"],
               "max_err_colour_T": err_col, "max_err_depth": err_depth,
-              "done_latch_mismatches": done_mismatch, "ms": ms, "plain_ms": plain_ms,
+              "done_latch_mismatches": done_mismatch, "bit_identical": True,
+              "cull": culled, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by,
               "launches": cuda_core.launches["raster_fwd"]})
 
@@ -223,8 +268,8 @@ def main() -> int:
     if "kernel_bwd" in phases:
         gbuf = seeded_cotangent(torch, cfg, dev)
         bargs = (*lay, fwd_tile_buf, gbuf, WIDTH, HEIGHT, cfg)
-        d1 = cuda_core.raster_bwd(*bargs)
-        d2 = cuda_core.raster_bwd(*bargs)
+        d1 = cuda_core.raster_bwd(*bargs, tile_order=order)
+        d2 = cuda_core.raster_bwd(*bargs, tile_order=order)
         plain = plain_core.raster_bwd_plain(*bargs)
         torch.cuda.synchronize()
         require(bool(torch.isfinite(d1).all()), "backward kernel: non-finite output")
@@ -233,7 +278,7 @@ def main() -> int:
                 "segment reduction: two runs differ")
         rows = hold_dpay(d1, plain)
         max_err = float((d1 - plain).abs().max())
-        ms = cuda_ms(lambda: cuda_core.raster_bwd(*bargs), REPS)
+        ms = cuda_ms(lambda: cuda_core.raster_bwd(*bargs, tile_order=order), REPS)
         plain_ms = cuda_ms(lambda: plain_core.raster_bwd_plain(*bargs), REPS)
         ops = stats["visited"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_BWD
         nbytes = in_bytes + 2 * buf_bytes + used_chunks * C.GRAD_ROWS * cfg.chunk * 4
@@ -241,7 +286,7 @@ def main() -> int:
         kernels["raster_bwd"].update(max_abs_err=max_err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         emit({"phase": "kernel_bwd", "rows": rows, "max_abs_err": max_err,
-              "bit_identical": True, "ms": ms, "plain_ms": plain_ms,
+              "bit_identical": True, "cull": culled, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by})
         del plain, d1, d2
 
@@ -274,7 +319,7 @@ def probe_phase(torch, binned, cfg, nbytes, kernels):
     from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
     from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, measure
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
-    got = cuda_core.raster_probe(*lay, cfg)
+    got = cuda_core.raster_probe(*lay, WIDTH, HEIGHT, cfg, tile_order=binned.tile_order)
     plain = plain_core.raster_probe_plain(*lay, cfg)
     torch.cuda.synchronize()
     # the kernel sums in float32 in another order: per tile, 1e-5 of the
@@ -395,15 +440,16 @@ def train_phase(torch, scene, cfg, dev, kernels):
     binned, binning = binned_inputs(state.model.params, state.model.aux.alive,
                                     0, scene, 0, cfg, dev)
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
-    tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
+    order = binned.tile_order
+    tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg, tile_order=order)
     gbuf = seeded_cotangent(torch, cfg, dev)
-    dpay = cuda_core.raster_bwd(*lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg)
+    dpay = cuda_core.raster_bwd(*lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg, tile_order=order)
     split = {
         "binning_ms": cuda_ms(binning, REPS),
         "forward_kernel_ms": cuda_ms(lambda: cuda_core.raster_fwd(
-            *lay, WIDTH, HEIGHT, cfg), REPS),
+            *lay, WIDTH, HEIGHT, cfg, tile_order=order), REPS),
         "backward_kernel_ms": cuda_ms(lambda: cuda_core.raster_bwd(
-            *lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg), REPS),
+            *lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg, tile_order=order), REPS),
         "segment_reduction_ms": cuda_ms(lambda: segment_sum(dpay, binned), REPS),
     }
     split["rest_ms"] = step_ms - sum(split.values())
@@ -413,7 +459,8 @@ def train_phase(torch, scene, cfg, dev, kernels):
             "small_input_max_err": small_errs,
             "loss_first": float(totals[0]), "loss_last": float(totals[-1]),
             "num_alive": {str(k): v for k, v in sorted(alive.items())},
-            "num_rendered_final": binned.num_rendered, "launches": launches,
+            "num_rendered_final": binned.num_rendered,
+            "cull_final": cull_stats(binned, WIDTH, HEIGHT, cfg), "launches": launches,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 

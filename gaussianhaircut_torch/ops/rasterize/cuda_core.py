@@ -1,9 +1,17 @@
 """Wrappers of the hand-written CUDA kernels of the rasterizer: the
 compositing forward and backward (``gaussianhaircut_torch/csrc/
 raster_{fwd,bwd}.cu``, the port of
-``gaussianhaircut_tpu/ops/rasterize/pallas_core.py``) and the forward's
+``gaussianhaircut_tpu/ops/rasterize/pallas_core.py``), the forward's
 fixed-cost probe (``csrc/raster_probe.cu``, the port of
-``tools/tpu_profile_r4.py: _h_fixed_probe``).
+``tools/tpu_profile_r4.py: _h_fixed_probe``) and ``warp_masks``, which
+writes out the per-warp cull all three compute while staging
+(``csrc/raster_common.cuh``) so that it can be held against its plain
+mirror.
+
+The kernels need tiles whose width is a multiple of 8 and height a
+multiple of 4 (each warp owns an 8x4 pixel block), at most 1024 pixels, and
+chunks of a multiple of 32 instances.  Blocks take tiles in ``tile_order``
+(``Binned.tile_order``: ``common.heavy_first``), which changes no output.
 
 Build: each source is compiled by ``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared`` into its own shared library with a plain C
@@ -38,10 +46,11 @@ SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
 # takes the stream last and returns cudaGetLastError()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    "raster_fwd": ("raster_fwd", [_P] * 4 + [_I] * 5),
-    "raster_bwd": ("raster_bwd", [_P] * 6 + [_I] * 5),
-    "raster_probe": ("raster_probe", [_P] * 4 + [_I] * 3),
-    "raster_probe_grid_only": ("raster_probe", [_P] * 4 + [_I] * 3),
+    "raster_fwd": ("raster_fwd", [_P] * 5 + [_I] * 5),
+    "raster_warp_masks": ("raster_fwd", [_P] * 4 + [_I] * 5),
+    "raster_bwd": ("raster_bwd", [_P] * 7 + [_I] * 5),
+    "raster_probe": ("raster_probe", [_P] * 5 + [_I] * 5),
+    "raster_probe_grid_only": ("raster_probe", [_P] * 5 + [_I] * 5),
 }
 _HEADERS = ("raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,7 +122,18 @@ def _load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.argtypes = argtypes + [_P]
             fn.restype = ctypes.c_int
+    occupancy = getattr(lib, name + "_blocks_per_sm")
+    occupancy.argtypes = [_I] * 3
+    occupancy.restype = ctypes.c_int
     return lib
+
+
+def blocks_per_sm(name: str, cfg: C.RasterConfig) -> int:
+    """Blocks of library ``name``'s kernel resident on one SM at ``cfg``'s
+    launch shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    if name not in _libs:
+        build()
+    return getattr(_libs[name], name + "_blocks_per_sm")(cfg.tile_w, cfg.tile_h, cfg.chunk)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
@@ -128,9 +148,10 @@ def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
 
 
 def _check_layout(payload, chunk_start, nchunks, cfg):
-    if cfg.tile_pix > 1024 or cfg.tile_pix % 32:
-        raise ValueError(f"tile of {cfg.tile_pix} pixels: the kernels need a "
-                         "multiple of 32 pixels, at most 1024")
+    if cfg.tile_pix > 1024 or cfg.tile_w % 8 or cfg.tile_h % 4:
+        raise ValueError(f"{cfg.tile_w}x{cfg.tile_h} tile: the kernels need a width "
+                         "that is a multiple of 8, a height that is a multiple of 4 "
+                         "and at most 1024 pixels")
     if cfg.chunk % 32:
         raise ValueError(f"chunk {cfg.chunk} is not a multiple of 32")
     _check("payload", payload, torch.float32,
@@ -140,6 +161,13 @@ def _check_layout(payload, chunk_start, nchunks, cfg):
     for t in (chunk_start, nchunks):
         if t.device != payload.device:
             raise ValueError("kernel inputs lie on different devices")
+
+
+def _grid_x(num_tiles: int, width: int, height: int, cfg) -> int:
+    gx, gy = cfg.grid(width, height)
+    if num_tiles != gx * gy:
+        raise ValueError(f"{num_tiles} tile ranges for a {gx}x{gy} grid")
+    return gx
 
 
 def _launch(entry: str, *args) -> None:
@@ -154,29 +182,47 @@ def _launch(entry: str, *args) -> None:
 
 def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, width: int, height: int,
-               cfg: C.RasterConfig) -> torch.Tensor:
+               cfg: C.RasterConfig, *, tile_order: torch.Tensor) -> torch.Tensor:
     """Compositing forward -> tile_buf [T, PIX, 16]."""
     if not payload.is_cuda:
         return plain_core.raster_fwd_plain(payload, chunk_start, nchunks,
                                            width, height, cfg)
     _check_layout(payload, chunk_start, nchunks, cfg)
     num_tiles = chunk_start.shape[0]
-    gx, gy = cfg.grid(width, height)
-    if num_tiles != gx * gy:
-        raise ValueError(f"{num_tiles} tile ranges for a {gx}x{gy} grid")
+    gx = _grid_x(num_tiles, width, height, cfg)
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
+    _check("tile_order", tile_order, torch.int32, nchunks.shape)
     _launch("raster_fwd", payload.data_ptr(), chunk_start.data_ptr(),
-            nchunks.data_ptr(), tile_buf.data_ptr(), num_tiles, gx,
-            cfg.tile_w, cfg.tile_h, cfg.chunk,
+            nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles,
+            gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
             torch.cuda.current_stream(payload.device).cuda_stream)
     return tile_buf
+
+
+def warp_masks(payload: torch.Tensor, chunk_start: torch.Tensor,
+               nchunks: torch.Tensor, width: int, height: int,
+               cfg: C.RasterConfig) -> torch.Tensor:
+    """The per-warp cull as the kernels' staging computes it -> masks
+    [TC, CH] int64 in [0, 2^32) (0 for chunks in no tile's range): the
+    card's side of ``plain_core.warp_masks_plain``."""
+    if not payload.is_cuda:
+        return plain_core.warp_masks_plain(payload, chunk_start, nchunks, width, cfg)
+    _check_layout(payload, chunk_start, nchunks, cfg)
+    num_tiles = chunk_start.shape[0]
+    gx = _grid_x(num_tiles, width, height, cfg)
+    masks = torch.zeros((payload.shape[0], cfg.chunk), dtype=torch.int32,
+                        device=payload.device)
+    _launch("raster_warp_masks", payload.data_ptr(), chunk_start.data_ptr(),
+            nchunks.data_ptr(), masks.data_ptr(), num_tiles, gx, cfg.tile_w,
+            cfg.tile_h, cfg.chunk, torch.cuda.current_stream(payload.device).cuda_stream)
+    return masks.long() & 0xFFFFFFFF
 
 
 def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, tile_buf: torch.Tensor,
                gbuf: torch.Tensor, width: int, height: int,
-               cfg: C.RasterConfig) -> torch.Tensor:
+               cfg: C.RasterConfig, *, tile_order: torch.Tensor) -> torch.Tensor:
     """Compositing backward -> dpay [TC, 16, CH] (zero where no tile
     reaches)."""
     if not payload.is_cuda:
@@ -184,23 +230,23 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                                            tile_buf, gbuf, width, height, cfg)
     _check_layout(payload, chunk_start, nchunks, cfg)
     num_tiles = chunk_start.shape[0]
-    gx, gy = cfg.grid(width, height)
-    if num_tiles != gx * gy:
-        raise ValueError(f"{num_tiles} tile ranges for a {gx}x{gy} grid")
+    gx = _grid_x(num_tiles, width, height, cfg)
     buf_shape = (num_tiles, cfg.tile_pix, C.PAD_CHANNELS)
     _check("tile_buf", tile_buf, torch.float32, buf_shape)
     _check("gbuf", gbuf, torch.float32, buf_shape)
     dpay = torch.zeros((payload.shape[0], C.GRAD_ROWS, cfg.chunk),
                        dtype=torch.float32, device=payload.device)
+    _check("tile_order", tile_order, torch.int32, nchunks.shape)
     _launch("raster_bwd", payload.data_ptr(), chunk_start.data_ptr(),
-            nchunks.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
+            nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
             dpay.data_ptr(), num_tiles, gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
             torch.cuda.current_stream(payload.device).cuda_stream)
     return dpay
 
 
 def raster_probe(payload: torch.Tensor, chunk_start: torch.Tensor,
-                 nchunks: torch.Tensor, cfg: C.RasterConfig,
+                 nchunks: torch.Tensor, width: int, height: int,
+                 cfg: C.RasterConfig, *, tile_order: torch.Tensor,
                  grid_only: bool = False) -> torch.Tensor:
     """The forward's fixed-cost probe -> tile_buf [T, PIX, 16], every entry
     of a tile the sum of payload row 0 over the tile's chunks.  With
@@ -214,10 +260,12 @@ def raster_probe(payload: torch.Tensor, chunk_start: torch.Tensor,
         return plain_core.raster_probe_plain(payload, chunk_start, nchunks, cfg)
     _check_layout(payload, chunk_start, nchunks, cfg)
     num_tiles = chunk_start.shape[0]
+    gx = _grid_x(num_tiles, width, height, cfg)
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
+    _check("tile_order", tile_order, torch.int32, nchunks.shape)
     _launch("raster_probe_grid_only" if grid_only else "raster_probe",
             payload.data_ptr(), chunk_start.data_ptr(), nchunks.data_ptr(),
-            tile_buf.data_ptr(), num_tiles, cfg.tile_pix, cfg.chunk,
-            torch.cuda.current_stream(payload.device).cuda_stream)
+            tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles, gx, cfg.tile_w,
+            cfg.tile_h, cfg.chunk, torch.cuda.current_stream(payload.device).cuda_stream)
     return tile_buf

@@ -15,12 +15,28 @@ stops (T would drop below 1e-4) at the same instance as in the kernel.  A
 chunk is skipped once every pixel of its tile has stopped, as the kernels
 do.  They are what the CPU runs and what the kernels are held against on
 the card.
+
+``warp_masks_plain`` mirrors the kernels' exact per-warp cull
+(``csrc/raster_common.cuh: warp_mask``): the plain versions evaluate every
+pair and need no cull, but the card's masks are held against it and the
+CPU tests show it conservative.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gaussianhaircut_torch.ops.rasterize import common as C
+
+# the warps' pixel footprints and the cull's constants (raster_common.cuh)
+FOOT_W, FOOT_H = 8, 4
+CULL_PAD = 1.0
+CULL_SLACK = 1e-3
+CULL_MAX_POS = 2.0 ** 20
+CULL_MAX_VAL = 2.0 ** 40
+CULL_MAX_COND = 2.0 ** 20
+CULL_U = 2.0 ** -24
+ALPHA_MIN_F32 = float(np.float32(1.0) / np.float32(255.0))   # the kernels' 1.0f / 255.0f
 
 
 class _Walk:
@@ -166,3 +182,61 @@ def raster_bwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
         dpay[chunks] = torch.stack(rows, dim=-1)
         prefix[tiles], walk.t[tiles], walk.done[tiles] = pre, t, done
     return dpay
+
+
+def warp_of_pixel(cfg: C.RasterConfig) -> torch.Tensor:
+    """[PIX] int64: the warp whose 8x4 block holds each tile-buffer pixel."""
+    i = torch.arange(cfg.tile_pix)
+    return (i // cfg.tile_w) // FOOT_H * (cfg.tile_w // FOOT_W) + (i % cfg.tile_w) // FOOT_W
+
+
+def warp_masks_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
+                     nchunks: torch.Tensor, width: int,
+                     cfg: C.RasterConfig) -> torch.Tensor:
+    """The kernels' per-warp cull -> masks [TC, CH] int64 (bit w set: warp
+    w walks the instance; 0 for chunks in no tile's range).  The same
+    float64 operations in the same order as ``warp_mask`` in
+    ``csrc/raster_common.cuh``, which states why the box holds every pair
+    the kernels' float test accepts."""
+    tc, _, ch = payload.shape
+    dev = payload.device
+    nwx, nwy = cfg.tile_w // FOOT_W, cfg.tile_h // FOOT_H
+    all_bits = (1 << (nwx * nwy)) - 1
+    num_tiles = chunk_start.shape[0]
+    gx_grid, _ = cfg.grid(width, 1)
+    nc = nchunks.long()
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev), nc)
+    first = torch.repeat_interleave(chunk_start.long() - (torch.cumsum(nc, 0) - nc), nc)
+    chunks = first + torch.arange(tile_of.shape[0], device=dev)
+    geo = payload[chunks, :6]                                   # [n, 6, CH] f32
+    x0 = ((tile_of % gx_grid) * cfg.tile_w)[:, None]
+    y0 = ((tile_of // gx_grid) * cfg.tile_h)[:, None]
+    X, Y, A, B, Cc, O = (geo[:, r].double() for r in range(6))
+    tame = ((X.abs() < CULL_MAX_POS) & (Y.abs() < CULL_MAX_POS)
+            & (A.abs() < CULL_MAX_VAL) & (B.abs() < CULL_MAX_VAL)
+            & (Cc.abs() < CULL_MAX_VAL) & (O.abs() < CULL_MAX_VAL)
+            & (x0 + cfg.tile_w <= CULL_MAX_POS) & (y0 + cfg.tile_h <= CULL_MAX_POS))
+    faint = geo[:, C.F_OP] < ALPHA_MIN_F32
+    det = A * Cc - B * B
+    tr = A + Cc
+    cond = tr * tr / det
+    cull_ok = (A > 0.0) & (det > 0.0) & ~(cond > CULL_MAX_COND)
+    lim = torch.log(O / ALPHA_MIN_F32) + CULL_SLACK
+    qmax = 2.0 * lim / (1.0 - (8.0 * CULL_U) * cond - 4.0 * CULL_U)
+    ex = torch.sqrt(qmax * Cc / det) + CULL_PAD
+    ey = torch.sqrt(qmax * A / det) + CULL_PAD
+    bx0, bx1, by0, by1 = X - ex, X + ex, Y - ey, Y + ey
+    cols = torch.zeros_like(chunks[:, None].expand(-1, ch))
+    for i in range(nwx):
+        lo = (x0 + i * FOOT_W).double()
+        cols |= ((lo <= bx1) & (lo + (FOOT_W - 1) >= bx0)).long() << i
+    box = torch.zeros_like(cols)
+    for i in range(nwy):
+        lo = (y0 + i * FOOT_H).double()
+        box |= torch.where((lo <= by1) & (lo + (FOOT_H - 1) >= by0), cols << (i * nwx), 0)
+    mask = torch.where(cull_ok, box, all_bits)
+    mask = torch.where(faint, 0, mask)
+    mask = torch.where(tame, mask, all_bits)
+    out = torch.zeros((tc, ch), dtype=torch.int64, device=dev)
+    out[chunks] = mask
+    return out

@@ -1,8 +1,8 @@
 """Scene loading: COLMAP / Blender-JSON / Synthetic(cameras.npz) readers with
 per-view GT (images, hair/body masks, Gabor orientation maps).  A copy of
 ``gaussianhaircut_tpu/scene/dataset.py`` that reads PNGs with the port's own
-codec (``utils/image.py``) and resizes with ``torch.nn.functional.
-interpolate`` on the CPU, since PIL is not a dependency of the port.  Images
+codec (``utils/image.py``) and resizes 8-bit images in numpy with PIL's
+own integer arithmetic, since PIL is not a dependency of the port.  Images
 must therefore be 8-bit PNGs, as the pipeline writes them (the GT paths
 already assume ``.png``: the variance file is the image path with ``png``
 replaced by ``npy``).
@@ -60,32 +60,85 @@ def nerfpp_norm(transforms: list[np.ndarray]) -> tuple[np.ndarray, float]:
     return -center, radius
 
 
+_PRECISION_BITS = 22      # fixed-point fraction bits of PIL's 8-bit resample
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic kernel, a = -0.5, in its own order of operations."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _resample_coeffs(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
+    bicubic filter (support 2, widened by the scale when shrinking): per
+    output index the first input index and the integer coefficients
+    [out_size, ksize] with 22 fraction bits (zero past each window)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # float -> int casts truncate toward zero, as in C
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)[None, :]
+    inside = x < xmax[:, None]
+    k = np.where(inside, _bicubic(((x + xmin[:, None]) - center[:, None] + 0.5)
+                                  * (1.0 / filterscale)), 0.0)
+    ww = np.zeros(out_size)
+    for i in range(ksize):                  # PIL's order of summation
+        ww = ww + k[:, i]
+    k = np.where(ww[:, None] != 0.0, k / np.where(ww == 0.0, 1.0, ww)[:, None], k)
+    k = k * (1 << _PRECISION_BITS)
+    kk = np.where(k < 0, np.trunc(-0.5 + k), np.trunc(0.5 + k)).astype(np.int64)
+    return xmin, kk
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of PIL's 8-bit resample along ``axis`` of [H, W, C] uint8:
+    integer sums of the fixed-point coefficients, rounded and clipped."""
+    xmin, kk = _resample_coeffs(img.shape[axis], out_size)
+    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :],
+                     img.shape[axis] - 1)                    # [out, ksize]
+    src = np.moveaxis(img.astype(np.int64), axis, 0)        # [in, ..., C]
+    ss = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for i in range(kk.shape[1]):
+        ss += src[idx[:, i]] * kk[:, i].reshape((-1,) + (1,) * (src.ndim - 1))
+    out = np.where(ss <= 0, 0, np.where(ss >= (1 << _PRECISION_BITS << 8), 255,
+                                        ss >> _PRECISION_BITS))
+    return np.moveaxis(out.astype(np.uint8), 0, axis)
+
+
 def _resize_uint8(img: np.ndarray, resolution: tuple[int, int]) -> np.ndarray:
-    """PIL's ``Image.resize(resolution)`` of an 8-bit image [H, W(, C)]: a
-    copy when the size is unchanged, else bicubic with PIL's kernel
-    (a = -0.5, widened when shrinking; torch's ``antialias=True``), one axis
-    at a time, each pass rounded back to 8 bits.  Images with alpha are
-    resized premultiplied, as PIL does.  PIL's fixed-point arithmetic can
-    differ by one level."""
+    """PIL's ``Image.resize(resolution)`` of an 8-bit image [H, W(, C)], in
+    PIL's integer arithmetic: a copy when the size is unchanged, else its
+    bicubic resample (a = -0.5, widened when shrinking), the horizontal
+    pass and then the vertical, each only where that size changes and each
+    rounded and clipped to 8 bits.  Gray + alpha and RGBA are resized
+    premultiplied (``La`` / ``RGBa``: round(c * a / 255)) and divided back
+    with PIL's flooring division (c * 255 // a where 0 < a < 255)."""
     w, h = resolution
     if img.shape[1] == w and img.shape[0] == h:
         return img.copy()
-    x = torch.from_numpy(img.reshape(img.shape[0], img.shape[1], -1)
-                         .astype(np.float32)).permute(2, 0, 1)[None]
-    alpha = x.shape[1] in (2, 4)
+    x = img.reshape(img.shape[0], img.shape[1], -1)
+    alpha = x.shape[2] in (2, 4)
     if alpha:
-        x[:, :-1] = torch.round(x[:, :-1] * x[:, -1:] / 255.0)
-    # horizontal pass, then vertical, each rounded to 8 bits as PIL does
-    for size in ((x.shape[2], w), (h, w)):
-        x = torch.clamp(torch.round(torch.nn.functional.interpolate(
-            x, size=size, mode="bicubic", align_corners=False, antialias=True)),
-            0, 255)
+        x = x.astype(np.int64)
+        t = x[..., :-1] * x[..., -1:] + 128
+        x = np.concatenate([((t >> 8) + t) >> 8, x[..., -1:]], -1).astype(np.uint8)
+    if x.shape[1] != w:
+        x = _resample_axis(x, w, 1)
+    if x.shape[0] != h:
+        x = _resample_axis(x, h, 0)
     if alpha:
-        a = x[:, -1:]
-        x[:, :-1] = torch.where((a > 0) & (a < 255), torch.clamp(torch.floor(
-            x[:, :-1] * 255.0 / torch.clamp(a, min=1.0)), 0, 255), x[:, :-1])
-    out = x[0].permute(1, 2, 0).to(torch.uint8).numpy()
-    return out[..., 0] if img.ndim == 2 else out
+        a = x[..., -1:].astype(np.int64)
+        c = x[..., :-1].astype(np.int64)
+        div = np.minimum(255 * c // np.maximum(a, 1), 255)
+        x = np.concatenate([np.where((a > 0) & (a < 255), div, c), a], -1).astype(np.uint8)
+    return x[..., 0] if img.ndim == 2 else x
 
 
 def _load_image(path: str, resolution: tuple[int, int], max_value: float = 255.0) -> np.ndarray:
