@@ -58,12 +58,16 @@ REPS = 20          # timed repetitions of every CUDA-event timing
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations per (pixel, instance) pair, counted from the kernels'
-# source: a visited pair costs the exponent (dx, dy and the quadratic form,
+# source: a pair evaluated before its pixel stops, in a warp the exact
+# per-warp cull keeps, costs the exponent (dx, dy and the quadratic form,
 # 11), exp (1), op * e (1), the clamp and two compares (3) = 16; a blended
 # pair adds 1 - alpha, T (1 - alpha), alpha T and 10 colour FMAs (23).  The
 # backward's blended pair adds u (20), prefix / suffix / d alpha (7), the six
 # geometry terms (14), ten colour terms (10) and the 16-term pixel
-# reduction (16) = 67 more, 90 in all.
+# reduction (16) = 67 more, 90 in all.  The culled pairs can neither blend
+# nor stop a pixel, so the bound counts none of their operations; the
+# phases also print the bound that counts every visited pair, culled or not
+# (``bound_ms_uncut``), which does not depend on the cull.
 OPS_VISIT = 16
 OPS_BLEND_FWD = 23
 OPS_BLEND_BWD = 90
@@ -129,10 +133,10 @@ def ptxas_summary(logs: dict) -> dict:
     return out
 
 
-def cull_stats(binned, width, height, cfg) -> dict:
+def cull_stats(binned, width, height, cfg) -> tuple:
     """The card's per-warp cull masks on a layout, held against their plain
-    mirror on the same payload, and the (instance, warp) pairs they keep
-    over the used chunks' total."""
+    mirror on the same payload -> (the (instance, warp) pairs they keep
+    over the used chunks' total, the masks)."""
     from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
     card = cuda_core.warp_masks(*lay, width, height, cfg)
@@ -143,8 +147,8 @@ def cull_stats(binned, width, height, cfg) -> dict:
     nwarps = cfg.tile_pix // 32
     kept = sum(int(((card >> w) & 1).sum()) for w in range(nwarps))
     total = int(binned.nchunks.sum()) * cfg.chunk * nwarps
-    return {"pairs_kept": kept, "pairs_total": total, "kept_share": kept / total,
-            "masks_mismatched": mismatched}
+    return ({"pairs_kept": kept, "pairs_total": total, "kept_share": kept / total,
+             "masks_mismatched": mismatched}, plain)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -223,15 +227,18 @@ def main() -> int:
         binned, _ = binned_inputs(model.params, model.aux.alive, 3, scene,
                                   0, cfg, dev)
         lay = (binned.payload, binned.chunk_start, binned.nchunks)
-        order = binned.tile_order
         used_chunks = int(binned.nchunks.sum())
         in_bytes = used_chunks * 16 * cfg.chunk * 4 + 2 * binned.num_tiles * 4
         buf_bytes = binned.num_tiles * cfg.tile_pix * C.PAD_CHANNELS * 4
+        culled, masks = cull_stats(binned, WIDTH, HEIGHT, cfg)
         stats = {}
-        plain_buf = plain_core.raster_fwd_plain(*lay, WIDTH, HEIGHT, cfg, stats=stats)
-        fwd_tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg, tile_order=order)
+        plain_buf = plain_core.raster_fwd_plain(*lay, WIDTH, HEIGHT, cfg, stats=stats,
+                                                masks=masks)
+        fwd_tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
         torch.cuda.synchronize()
-        culled = cull_stats(binned, WIDTH, HEIGHT, cfg)
+        ops_fwd = stats["kept"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_FWD
+        ops_bwd = stats["kept"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_BWD
+        uncut = stats["visited"] - stats["kept"]
 
     if "kernel_fwd" in phases:
         # the cull skips only pairs that can neither blend nor stop a pixel,
@@ -245,21 +252,21 @@ def main() -> int:
                 f"forward kernel: not bit-identical to its plain version (colour/T "
                 f"error {err_col}, depth error {err_depth}, {done_mismatch} done-latch "
                 "mismatches)")
-        ms = cuda_ms(lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg,
-                                                  tile_order=order), REPS)
+        ms = cuda_ms(lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg), REPS)
         plain_ms = cuda_ms(lambda: plain_core.raster_fwd_plain(
             *lay, WIDTH, HEIGHT, cfg), REPS)
-        ops = stats["visited"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_FWD
-        b_ms, b_by = bound_ms(in_bytes + buf_bytes, ops)
+        b_ms, b_by = bound_ms(in_bytes + buf_bytes, ops_fwd)
         kernels["raster_fwd"].update(max_abs_err=max(err_col, err_depth), ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         emit({"phase": "kernel_fwd", "num_rendered": binned.num_rendered,
               "tiles": binned.num_tiles, "chunks_used": used_chunks,
-              "pairs_visited": stats["visited"], "pairs_blended": stats["contrib"],
+              "pairs_visited": stats["visited"], "pairs_visited_kept": stats["kept"],
+              "pairs_blended": stats["contrib"],
               "max_err_colour_T": err_col, "max_err_depth": err_depth,
               "done_latch_mismatches": done_mismatch, "bit_identical": True,
               "cull": culled, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": b_ms, "bound_by": b_by,
+              "bound_ms": b_ms, "bound_by": b_by, "bound_ms_uncut": bound_ms(
+                  in_bytes + buf_bytes, ops_fwd + uncut * OPS_VISIT)[0],
               "launches": cuda_core.launches["raster_fwd"]})
 
     if "kernel_probe" in phases:
@@ -268,8 +275,8 @@ def main() -> int:
     if "kernel_bwd" in phases:
         gbuf = seeded_cotangent(torch, cfg, dev)
         bargs = (*lay, fwd_tile_buf, gbuf, WIDTH, HEIGHT, cfg)
-        d1 = cuda_core.raster_bwd(*bargs, tile_order=order)
-        d2 = cuda_core.raster_bwd(*bargs, tile_order=order)
+        d1 = cuda_core.raster_bwd(*bargs)
+        d2 = cuda_core.raster_bwd(*bargs)
         plain = plain_core.raster_bwd_plain(*bargs)
         torch.cuda.synchronize()
         require(bool(torch.isfinite(d1).all()), "backward kernel: non-finite output")
@@ -278,16 +285,16 @@ def main() -> int:
                 "segment reduction: two runs differ")
         rows = hold_dpay(d1, plain)
         max_err = float((d1 - plain).abs().max())
-        ms = cuda_ms(lambda: cuda_core.raster_bwd(*bargs, tile_order=order), REPS)
+        ms = cuda_ms(lambda: cuda_core.raster_bwd(*bargs), REPS)
         plain_ms = cuda_ms(lambda: plain_core.raster_bwd_plain(*bargs), REPS)
-        ops = stats["visited"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_BWD
         nbytes = in_bytes + 2 * buf_bytes + used_chunks * C.GRAD_ROWS * cfg.chunk * 4
-        b_ms, b_by = bound_ms(nbytes, ops)
+        b_ms, b_by = bound_ms(nbytes, ops_bwd)
         kernels["raster_bwd"].update(max_abs_err=max_err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         emit({"phase": "kernel_bwd", "rows": rows, "max_abs_err": max_err,
               "bit_identical": True, "cull": culled, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": b_ms, "bound_by": b_by})
+              "bound_ms": b_ms, "bound_by": b_by,
+              "bound_ms_uncut": bound_ms(nbytes, ops_bwd + uncut * OPS_VISIT)[0]})
         del plain, d1, d2
 
     if "train" in phases:
@@ -319,7 +326,7 @@ def probe_phase(torch, binned, cfg, nbytes, kernels):
     from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
     from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, measure
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
-    got = cuda_core.raster_probe(*lay, WIDTH, HEIGHT, cfg, tile_order=binned.tile_order)
+    got = cuda_core.raster_probe(*lay, WIDTH, HEIGHT, cfg)
     plain = plain_core.raster_probe_plain(*lay, cfg)
     torch.cuda.synchronize()
     # the kernel sums in float32 in another order: per tile, 1e-5 of the
@@ -440,16 +447,15 @@ def train_phase(torch, scene, cfg, dev, kernels):
     binned, binning = binned_inputs(state.model.params, state.model.aux.alive,
                                     0, scene, 0, cfg, dev)
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
-    order = binned.tile_order
-    tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg, tile_order=order)
+    tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
     gbuf = seeded_cotangent(torch, cfg, dev)
-    dpay = cuda_core.raster_bwd(*lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg, tile_order=order)
+    dpay = cuda_core.raster_bwd(*lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg)
     split = {
         "binning_ms": cuda_ms(binning, REPS),
         "forward_kernel_ms": cuda_ms(lambda: cuda_core.raster_fwd(
-            *lay, WIDTH, HEIGHT, cfg, tile_order=order), REPS),
+            *lay, WIDTH, HEIGHT, cfg), REPS),
         "backward_kernel_ms": cuda_ms(lambda: cuda_core.raster_bwd(
-            *lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg, tile_order=order), REPS),
+            *lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg), REPS),
         "segment_reduction_ms": cuda_ms(lambda: segment_sum(dpay, binned), REPS),
     }
     split["rest_ms"] = step_ms - sum(split.values())
@@ -460,7 +466,7 @@ def train_phase(torch, scene, cfg, dev, kernels):
             "loss_first": float(totals[0]), "loss_last": float(totals[-1]),
             "num_alive": {str(k): v for k, v in sorted(alive.items())},
             "num_rendered_final": binned.num_rendered,
-            "cull_final": cull_stats(binned, WIDTH, HEIGHT, cfg), "launches": launches,
+            "cull_final": cull_stats(binned, WIDTH, HEIGHT, cfg)[0], "launches": launches,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 

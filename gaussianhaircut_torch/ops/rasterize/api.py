@@ -57,9 +57,8 @@ class _Rasterize(torch.autograd.Function):
                            opacity=opacity)
         binned = C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
                                  width, height, cfg)
-        tile_buf = cuda_core.raster_fwd(binned.payload, binned.chunk_start,
-                                        binned.nchunks, width, height, cfg,
-                                        tile_order=binned.tile_order)
+        tile_buf = cuda_core.raster_fwd(binned.payload, binned.chunk_start, binned.nchunks,
+                       width, height, cfg)
         image, t_final = C.assemble_image(tile_buf, bg, width, height, cfg)
         info["num_rendered"] = binned.num_rendered
         ctx.binned = binned
@@ -77,8 +76,7 @@ class _Rasterize(torch.autograd.Function):
         b = ctx.binned
         gbuf = C.disassemble_cotangent(g_img, g_t, bg, width, height, cfg)
         dpay = cuda_core.raster_bwd(b.payload, b.chunk_start, b.nchunks,
-                                    tile_buf, gbuf, width, height, cfg,
-                                    tile_order=b.tile_order)
+                                    tile_buf, gbuf, width, height, cfg)
         seg = segment_sum(dpay, b)
         d_ndc = torch.stack([seg[:, C.F_GX] * (width * 0.5),
                              seg[:, C.F_GY] * (height * 0.5),

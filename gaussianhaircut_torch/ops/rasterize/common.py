@@ -66,7 +66,6 @@ class Binned(NamedTuple):
                                  # in expansion (gid-ascending) order
     gauss_offset: torch.Tensor   # [P] int64 exclusive prefix of tiles_touched
     gauss_count: torch.Tensor    # [P] int64 tiles_touched
-    tile_order: torch.Tensor     # [T] int32 tiles by descending nchunks
     num_rendered: int            # N, the instance count
     num_tiles: int
 
@@ -215,16 +214,7 @@ def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
                   nchunks=nchunks.to(torch.int32),
                   gid=gid_slot, slot_of_instance=slot_of_instance,
                   gauss_offset=offsets, gauss_count=counts_g,
-                  tile_order=heavy_first(nchunks),
                   num_rendered=total, num_tiles=num_tiles)
-
-
-def heavy_first(nchunks: torch.Tensor) -> torch.Tensor:
-    """The order in which the kernels' blocks take tiles: by descending
-    chunk count, ties by tile index (a stable sort on the device, no host
-    sync).  It changes no output, only which tiles start in the last
-    wave."""
-    return torch.sort(nchunks, descending=True, stable=True).indices.to(torch.int32)
 
 
 def pixel_coords(num_tiles: int, width: int, cfg: RasterConfig, device):

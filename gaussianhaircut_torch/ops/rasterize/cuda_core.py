@@ -10,8 +10,8 @@ mirror.
 
 The kernels need tiles whose width is a multiple of 8 and height a
 multiple of 4 (each warp owns an 8x4 pixel block), at most 1024 pixels, and
-chunks of a multiple of 32 instances.  Blocks take tiles in ``tile_order``
-(``Binned.tile_order``: ``common.heavy_first``), which changes no output.
+chunks of a multiple of 32 instances.  Blocks take tiles heaviest first
+(``heavy_first``, computed by each wrapper), which changes no output.
 
 Build: each source is compiled by ``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared`` into its own shared library with a plain C
@@ -180,9 +180,17 @@ def _launch(entry: str, *args) -> None:
     launches[entry] += 1
 
 
+def heavy_first(nchunks: torch.Tensor) -> torch.Tensor:
+    """[T] int32: the order in which the kernels' blocks take tiles, by
+    descending chunk count, ties by tile index (a stable sort on the
+    tensors' device, no host sync).  It changes no output, only which tiles
+    start in the last wave."""
+    return torch.sort(nchunks, descending=True, stable=True).indices.to(torch.int32)
+
+
 def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, width: int, height: int,
-               cfg: C.RasterConfig, *, tile_order: torch.Tensor) -> torch.Tensor:
+               cfg: C.RasterConfig) -> torch.Tensor:
     """Compositing forward -> tile_buf [T, PIX, 16]."""
     if not payload.is_cuda:
         return plain_core.raster_fwd_plain(payload, chunk_start, nchunks,
@@ -192,7 +200,7 @@ def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
     gx = _grid_x(num_tiles, width, height, cfg)
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
-    _check("tile_order", tile_order, torch.int32, nchunks.shape)
+    tile_order = heavy_first(nchunks)
     _launch("raster_fwd", payload.data_ptr(), chunk_start.data_ptr(),
             nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles,
             gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
@@ -222,7 +230,7 @@ def warp_masks(payload: torch.Tensor, chunk_start: torch.Tensor,
 def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, tile_buf: torch.Tensor,
                gbuf: torch.Tensor, width: int, height: int,
-               cfg: C.RasterConfig, *, tile_order: torch.Tensor) -> torch.Tensor:
+               cfg: C.RasterConfig) -> torch.Tensor:
     """Compositing backward -> dpay [TC, 16, CH] (zero where no tile
     reaches)."""
     if not payload.is_cuda:
@@ -236,7 +244,7 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
     _check("gbuf", gbuf, torch.float32, buf_shape)
     dpay = torch.zeros((payload.shape[0], C.GRAD_ROWS, cfg.chunk),
                        dtype=torch.float32, device=payload.device)
-    _check("tile_order", tile_order, torch.int32, nchunks.shape)
+    tile_order = heavy_first(nchunks)
     _launch("raster_bwd", payload.data_ptr(), chunk_start.data_ptr(),
             nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
             dpay.data_ptr(), num_tiles, gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
@@ -246,8 +254,7 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
 
 def raster_probe(payload: torch.Tensor, chunk_start: torch.Tensor,
                  nchunks: torch.Tensor, width: int, height: int,
-                 cfg: C.RasterConfig, *, tile_order: torch.Tensor,
-                 grid_only: bool = False) -> torch.Tensor:
+                 cfg: C.RasterConfig, grid_only: bool = False) -> torch.Tensor:
     """The forward's fixed-cost probe -> tile_buf [T, PIX, 16], every entry
     of a tile the sum of payload row 0 over the tile's chunks.  With
     ``grid_only`` the kernel stages and reads no payload (each entry is the
@@ -263,7 +270,7 @@ def raster_probe(payload: torch.Tensor, chunk_start: torch.Tensor,
     gx = _grid_x(num_tiles, width, height, cfg)
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
-    _check("tile_order", tile_order, torch.int32, nchunks.shape)
+    tile_order = heavy_first(nchunks)
     _launch("raster_probe_grid_only" if grid_only else "raster_probe",
             payload.data_ptr(), chunk_start.data_ptr(), nchunks.data_ptr(),
             tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles, gx, cfg.tile_w,

@@ -75,21 +75,26 @@ def _instance(pay, j, px, py, t, done):
 
 def raster_fwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
                      nchunks: torch.Tensor, width: int, height: int,
-                     cfg: C.RasterConfig, stats: dict | None = None) -> torch.Tensor:
+                     cfg: C.RasterConfig, stats: dict | None = None,
+                     masks: torch.Tensor | None = None) -> torch.Tensor:
     """Composite each tile's depth-sorted instances front to back ->
     tile_buf [T, PIX, 16].  With ``stats``, counts the (pixel, instance)
     pairs this input needs: ``visited`` (evaluated before the pixel stops)
-    and ``contrib`` (blended)."""
+    and ``contrib`` (blended); given the per-warp cull ``masks`` [TC, CH]
+    (``warp_masks_plain``), also ``kept``: the visited pairs whose warp's
+    bit is set, the pairs the kernels must evaluate."""
     num_tiles = chunk_start.shape[0]
     dev = payload.device
     px, py = C.pixel_coords(num_tiles, width, cfg, dev)
     acc = torch.zeros((num_tiles, cfg.tile_pix, C.NUM_CHANNELS), device=dev)
     walk = _Walk(num_tiles, cfg.tile_pix, dev)
     cs, nc = chunk_start.long(), nchunks.long()
-    counts = {"visited": 0, "contrib": 0}
+    counts = {"visited": 0, "contrib": 0} | ({"kept": 0} if masks is not None else {})
+    warp = warp_of_pixel(cfg).to(dev)
     for k in range(int(nc.max()) if num_tiles else 0):
         tiles = walk.live_chunk_tiles(nc, k)
         pay = payload[cs[tiles] + k]
+        mk = masks[cs[tiles] + k] if masks is not None else None
         pxt, pyt, t, done = px[tiles], py[tiles], walk.t[tiles], walk.done[tiles]
         a = acc[tiles]
         for j in range(pay.shape[2]):
@@ -100,6 +105,9 @@ def raster_fwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
             if stats is not None:
                 counts["visited"] += q["visited"].sum()
                 counts["contrib"] += q["contrib"].sum()
+                if mk is not None:
+                    bit = (mk[:, j, None] >> warp) & 1
+                    counts["kept"] += (q["visited"] & (bit > 0)).sum()
         acc[tiles], walk.t[tiles], walk.done[tiles] = a, t, done
     if stats is not None:
         for key, v in counts.items():

@@ -7,8 +7,9 @@ turns on one GPU.
 ``DIR`` holds another commit's files (e.g. ``git archive <commit> | tar -x
 -C DIR`` into a git-ignored directory).  Its ``ops/rasterize/cuda_core.py``
 is loaded under another module name and builds that commit's kernels from
-that commit's sources, into that directory.  Both sides run on the same
-inputs at two layouts:
+that commit's sources, into that directory; its ``raster_fwd`` and
+``raster_bwd`` must take this checkout's arguments.  Both sides run on the
+same inputs at two layouts:
 
 - ``kernel``: the bench kernel shapes (``profile_fixed.bench_binned``:
   camera 0 of the bench scene, 100k slots, SH degree 3 active);
@@ -16,7 +17,7 @@ inputs at two layouts:
   after 50 iterations of ``chip_smoke.py``'s train phase (densify from 10
   every 10, an opacity reset at 30).
 
-Per round, each kernel (forward, backward, probe) runs baseline, this
+Per round, each kernel (forward, backward) runs baseline, this
 checkout, this checkout, baseline, each launch timed with CUDA events; the
 medians over all rounds are reported with the per-round ratios.  The
 outputs are compared too: the forwards bit for bit, the backwards by their
@@ -27,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
-import inspect
 import json
 import os
 import statistics
@@ -48,18 +48,6 @@ def load_baseline(root: str):
     spec.loader.exec_module(mod)
     mod.build()
     return mod
-
-
-def _call(fn, *args, width, height, cfg, order, **kw):
-    """Calls a wrapper with the arguments its signature takes: an older
-    probe has no width / height and no wrapper of an older checkout takes a
-    tile order."""
-    params = inspect.signature(fn).parameters
-    if "width" in params:
-        args = args + (width, height)
-    if "tile_order" in params:
-        kw["tile_order"] = order
-    return fn(*args, cfg, **kw)
 
 
 def train_final_binned(dev, cfg):
@@ -88,13 +76,12 @@ def compare(base, binned, width, height, cfg, reps: int) -> dict:
                        generator=gen, device=dev)
     gbuf[..., C.NUM_CHANNELS:C.CH_TRANS] = 0.0
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
-    geo = dict(width=width, height=height, cfg=cfg, order=binned.tile_order)
-    tile_buf = _call(cuda_core.raster_fwd, *lay, **geo)
+    tile_buf = cuda_core.raster_fwd(*lay, width, height, cfg)
     fns = {
-        "fwd": {m: (lambda m=m: _call(m.raster_fwd, *lay, **geo)) for m in (base, cuda_core)},
-        "bwd": {m: (lambda m=m: _call(m.raster_bwd, *lay, tile_buf, gbuf, **geo))
+        "fwd": {m: (lambda m=m: m.raster_fwd(*lay, width, height, cfg))
                 for m in (base, cuda_core)},
-        "probe": {m: (lambda m=m: _call(m.raster_probe, *lay, **geo)) for m in (base, cuda_core)},
+        "bwd": {m: (lambda m=m: m.raster_bwd(*lay, tile_buf, gbuf, width, height, cfg))
+                for m in (base, cuda_core)},
     }
     out = {"num_rendered": binned.num_rendered, "tiles": binned.num_tiles,
            "chunks_used": int(binned.nchunks.sum())}

@@ -103,12 +103,10 @@ def measure(binned, width: int, height: int, cfg: C.RasterConfig,
     """Median CUDA-event times of the forward, the probe and the grid-only
     probe on one binned layout, timed in turns (one of each per round)."""
     lay = (binned.payload, binned.chunk_start, binned.nchunks, width, height, cfg)
-    order = binned.tile_order
     fns = {
-        "fwd_ms": lambda: cuda_core.raster_fwd(*lay, tile_order=order),
-        "probe_ms": lambda: cuda_core.raster_probe(*lay, tile_order=order),
-        "grid_only_ms": lambda: cuda_core.raster_probe(*lay, grid_only=True,
-                                                       tile_order=order),
+        "fwd_ms": lambda: cuda_core.raster_fwd(*lay),
+        "probe_ms": lambda: cuda_core.raster_probe(*lay),
+        "grid_only_ms": lambda: cuda_core.raster_probe(*lay, grid_only=True),
     }
     for _ in range(warmup):
         for fn in fns.values():

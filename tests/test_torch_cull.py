@@ -184,10 +184,11 @@ def test_warp_footprints():
 
 def test_tile_order_is_heavy_first():
     """heavy_first is a permutation of the tiles with descending chunk
-    counts (ties by tile index), and bin_instances records it."""
+    counts (ties by tile index); on a binned layout its first tile holds
+    the most chunks."""
     rng = np.random.default_rng(5)
     nchunks = torch.from_numpy(rng.integers(1, 30, 511).astype(np.int32))
-    order = C.heavy_first(nchunks)
+    order = cuda_core.heavy_first(nchunks)
     assert order.dtype == torch.int32
     assert sorted(order.tolist()) == list(range(511))
     counts = nchunks[order.long()]
@@ -206,5 +207,36 @@ def test_tile_order_is_heavy_first():
                        height, cfg, opacity=opacity)
     b = C.bin_instances(pre, mean, conic, opacity, torch.zeros(p, 10), depth,
                         width, height, cfg)
-    assert torch.equal(b.tile_order, C.heavy_first(b.nchunks))
-    assert int(b.nchunks.max()) > int(b.nchunks.min())
+    order = cuda_core.heavy_first(b.nchunks)
+    assert int(b.nchunks[int(order[0])]) == int(b.nchunks.max()) > int(b.nchunks.min())
+    assert int(b.nchunks[int(order[-1])]) == int(b.nchunks.min())
+
+
+def test_plain_walk_counts_kept_pairs():
+    """The plain forward's ``kept`` count (the visited pairs the kernels
+    evaluate, which the bound in chip_smoke.py counts): all visited pairs
+    under full masks, none under empty ones, and under the cull's masks
+    between the blended and the visited pairs, fewer than all."""
+    cfg = C.RasterConfig(tile_w=16, tile_h=16, chunk=32)
+    width, height = 40, 32
+    num_tiles = int(np.prod(cfg.grid(width, height)))
+    lay = _layout(_edge_cases(np.random.default_rng(3), width, height, cfg)[:150],
+                  num_tiles, cfg.chunk)
+    lay[0][:, 8:8 + C.NUM_CHANNELS] = 0.5
+    masks = plain_core.warp_masks_plain(*lay, width, cfg)
+    counts = {}
+    for name, m in (("full", torch.full_like(masks, (1 << 8) - 1)),
+                    ("empty", torch.zeros_like(masks)), ("cull", masks)):
+        stats = {}
+        buf = plain_core.raster_fwd_plain(*lay, width, height, cfg, stats=stats, masks=m)
+        counts[name] = stats
+        torch.testing.assert_close(buf, plain_core.raster_fwd_plain(*lay, width, height, cfg),
+                                   rtol=0, atol=0)
+    assert counts["full"]["kept"] == counts["full"]["visited"]
+    assert counts["empty"]["kept"] == 0
+    cull = counts["cull"]
+    assert cull["contrib"] > 0
+    assert cull["contrib"] <= cull["kept"] < cull["visited"]
+    stats = {}
+    plain_core.raster_fwd_plain(*lay, width, height, cfg, stats=stats)
+    assert "kept" not in stats and stats["visited"] == cull["visited"]

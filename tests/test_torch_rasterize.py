@@ -246,11 +246,9 @@ def test_plain_probe_matches_tpu_probe_statement(jax_binned, tcfg):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
     assert (want[1] == 0).all() and (got.numpy()[nc.numpy() > 0] != 0).any()
     before = dict(cuda_core.launches)
-    routed = cuda_core.raster_probe(payload, cs, nc, W, H, tcfg,
-                                    tile_order=TC.heavy_first(nc))
+    routed = cuda_core.raster_probe(payload, cs, nc, W, H, tcfg)
     np.testing.assert_array_equal(
         routed.numpy(), plain_core.raster_probe_plain(payload, cs, nc, tcfg).numpy())
     assert cuda_core.launches == before
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        cuda_core.raster_probe(payload, cs, nc, W, H, tcfg, grid_only=True,
-                               tile_order=TC.heavy_first(nc))
+        cuda_core.raster_probe(payload, cs, nc, W, H, tcfg, grid_only=True)
