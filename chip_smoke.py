@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,cli]
+    python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,cli,
+                                    strands,kernel_strands]
 
-Drives the port's main paths, the stage-1 trainer and its CLIs, on the
-bench scene (seeded synthetic point cloud, 100k Gaussians, 960x544, SH
-degree 3, four views, BARF camera residuals trainable, 32x32 tiles, chunk
-256):
+Drives the port's main paths, the stage-1 trainer and its CLIs and the
+strand stack's CLIs, on the bench scene (seeded synthetic point cloud, 100k
+Gaussians, 960x544, SH degree 3, four views, BARF camera residuals
+trainable, 32x32 tiles, chunk 256):
 
 1. env          -- requires CUDA; prints the card's name and power limit;
 2. build        -- compiles the CUDA kernels from the checkout's sources;
@@ -27,7 +28,24 @@ degree 3, four views, BARF camera residuals trainable, 32x32 tiles, chunk
                    PLY, checkpoint and camera pickles), a resume from the
                    iteration-30 checkpoint to 40, and ``cli.render_gaussians``
                    on the result; launch counts must equal the steps plus
-                   the renders.
+                   the renders;
+8. strands      -- the strand stack on the bench scene written to disk:
+                   ``cli.train_gaussians`` for 20 iterations (the head PLY
+                   and camera pickles), ``cli.train_latent_strands`` at the
+                   full-width defaults (10,000 strands x 100 points, texture
+                   256, UNet 128/256/512 at 32x32) with ``--use_diffusion``
+                   for 40 iterations, ``cli.train_strands`` from its
+                   checkpoint with ``--use_sds`` for 40, ``cli.export_curves``;
+                   each step launches each compositing kernel once, the
+                   losses are finite, the checkpoints load back and the
+                   exported [10000, 100, 3] strands are finite; per stage
+                   it/s, instances (the hair rows' share), chunks, the
+                   largest tile and peak memory;
+9. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
+                   the head and 990k strand Gaussians): the forward bit for
+                   bit, the backward row by row (two runs bit-identical) and
+                   the card's warp masks against their plain versions, with
+                   the kernels' times and bounds.
 
 Each phase prints one JSON line; then one line lists every kernel, then the
 card's name and power limit, and the last line is the device record.  Any
@@ -48,11 +66,17 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "cli")
+PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "cli",
+          "strands", "kernel_strands")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
 REPS = 20          # timed repetitions of every CUDA-event timing
+# the strand stack at the JAX package's full-width defaults
+# (models/textured_strands.py:44-57, models/diffusion.py:30-41); the UNet's
+# widths are the defaults of models/diffusion.py
+N_STRANDS, STRAND_LEN, TEXTURE, DIFF_INPUT = 10_000, 100, 256, 32
+S1_ITERS, STRAND_ITERS = 20, 40
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -151,6 +175,16 @@ def cull_stats(binned, width, height, cfg) -> tuple:
              "masks_mismatched": mismatched}, plain)
 
 
+def layout_stats(binned, n_head: int) -> dict:
+    """Instances, the hair rows' share of them (rows from ``n_head`` on),
+    chunks and the largest chunk count of any tile of a binned layout."""
+    nr = binned.num_rendered
+    hair = int(binned.gauss_count[n_head:].sum())
+    return {"num_rendered": nr, "hair_instances": hair, "hair_share": hair / max(nr, 1),
+            "chunks": int(binned.nchunks.sum()), "max_chunks_per_tile": int(binned.nchunks.max()),
+            "tiles_over_one_chunk": int((binned.nchunks > 1).sum())}
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
@@ -162,9 +196,12 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args()
+    t_start = time.perf_counter()
     phases = args.phases.split(",")
     for ph in phases:
         require(ph in PHASES, f"unknown phase {ph!r}")
+    require("kernel_strands" not in phases or "strands" in phases,
+            "kernel_strands holds the kernels at the layout the strands phase trains")
 
     import torch
     if not torch.cuda.is_available():
@@ -303,7 +340,23 @@ def main() -> int:
     if "cli" in phases:
         emit(cli_phase(torch))
 
+    if "strands" in phases:
+        t0 = time.perf_counter()
+        res, layout = strands_phase(torch, cfg, dev)
+        res["seconds"] = time.perf_counter() - t0
+        for name in ("raster_fwd", "raster_bwd"):
+            kernels[name]["launches_strands"] = {
+                st: res[st]["launches"][name] for st in ("stage2", "stage3")}
+        emit(res)
+        if "kernel_strands" in phases:
+            t0 = time.perf_counter()
+            res = kernel_strands_phase(torch, layout, cfg)
+            res["seconds"] = time.perf_counter() - t0
+            emit(res)
+        del layout
+
     complete = all(ph in phases for ph in PHASES)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if complete:
         for k in kernels.values():
             missing = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -515,16 +568,13 @@ def cli_phase(torch):
         require(train_launches["raster_fwd"] == iters + n_evals * eval_views,
                 f"cli: raster_fwd launched {train_launches['raster_fwd']} times, expected "
                 f"{iters} steps + {n_evals * eval_views} evaluation renders")
-        with open(os.path.join(m1, "metrics.jsonl")) as f:
-            recs = [json.loads(ln) for ln in f]
+        recs = _metrics(m1)
         evals = {r["step"]: r for r in recs if "train_psnr" in r}
         require(sorted(evals) == [30, 60], f"cli: evaluations at {sorted(evals)}")
         for r in evals.values():
             require(all(np.isfinite(r[k]) for k in ("train_l1", "train_ce", "train_or",
                                                    "train_psnr")), f"cli: eval {r}")
-        logged = {r["step"]: r["t"] for r in recs if "ema" in r}
-        steps = sorted(logged)
-        rates = [(b - a) / (logged[b] - logged[a]) for a, b in zip(steps[:-1], steps[1:])]
+        rates = _window_rates(recs)
         n_alive = state.model.num_alive()
         n_ply = len(ply.read_ply(os.path.join(
             m1, "point_cloud", f"iteration_{iters}", "point_cloud.ply"))["vertex"])
@@ -565,6 +615,212 @@ def cli_phase(torch):
             "render_export_s_per_view": render_s / N_VIEWS,
             "launches": {"train": train_launches, "resume": resume_launches,
                          "render": render_launches},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _metrics(path: str) -> list:
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def _window_rates(recs: list) -> list:
+    """it/s over the windows between logged steps (each logged step syncs
+    the card)."""
+    logged = {r["step"]: r["t"] for r in recs if "total" in r}
+    steps = sorted(logged)
+    return [(b - a) / (logged[b] - logged[a]) for a, b in zip(steps[:-1], steps[1:])]
+
+
+def strand_scene(scene, center=(0.0, 0.1, 0.0), radius=0.25):
+    """The bench scene with a hair mask of 1 inside the projected disc of
+    ``radius`` around the scalp cap (the synthetic scalp pool lies within
+    0.1 of (0, 0.05, 0)) and 0 elsewhere: stage 1 then labels the blob's
+    Gaussians outside the hair as head, the rows stage 2 composites under
+    the strands."""
+    for c in scene.train_cameras:
+        w2c = np.asarray(c.colmap_transform, np.float64)
+        p = w2c[:3, :3] @ np.asarray(center) + w2c[:3, 3]
+        fx = c.width / (2 * np.tan(c.fovx / 2))
+        fy = c.height / (2 * np.tan(c.fovy / 2))
+        u, v = fx * p[0] / p[2] + c.width / 2, fy * p[1] / p[2] + c.height / 2
+        yy, xx = np.mgrid[0:c.height, 0:c.width]
+        r_pix = radius * fx / p[2]
+        c.mask_hair = (((xx - u) ** 2 + ((yy - v) * fx / fy) ** 2 <= r_pix ** 2)
+                       .astype(np.float32)[None])
+    return scene
+
+
+def strands_phase(torch, cfg, dev):
+    """The strand stack through its CLIs on the bench scene written to
+    disk: a short stage 1, stage 2 at the full-width defaults with the
+    self-trained diffusion prior, stage 3 with a fresh SDS prior, and the
+    export.  Returns (the phase's record, the final stage-2 layout's
+    fields for kernel_strands)."""
+    import tempfile
+    from gaussianhaircut_torch.cli import (
+        export_curves, train_gaussians, train_latent_strands, train_strands)
+    from gaussianhaircut_torch.cli.render_gaussians import find_head_ply
+    from gaussianhaircut_torch.models import gaussian_model as gm
+    from gaussianhaircut_torch.models.textured_strands import (
+        TexturedStrandsConfig, sample_roots, synthetic_scalp_pool)
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.scene.synthetic import bench_scene, write_colmap_scene
+    from gaussianhaircut_torch.tools.profile_fixed import binned_fields, scene_camera
+    from gaussianhaircut_torch.train import stage2, stage3
+
+    s1_iters, iters = S1_ITERS, STRAND_ITERS
+    scene = strand_scene(bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED))
+    scfg = TexturedStrandsConfig(num_strands=N_STRANDS, texture_size=TEXTURE,
+                                 strand_length=STRAND_LEN, diffusion_input=DIFF_INPUT,
+                                 sh_degree=3, use_diffusion=True)
+    n_strands, length = scfg.num_strands, scfg.strand_length
+    cam0 = scene_camera(scene, 0, dev)
+    out = {"phase": "strands", "strands": n_strands, "strand_length": length,
+           "texture_size": scfg.texture_size, "diffusion_input": scfg.diffusion_input}
+    with tempfile.TemporaryDirectory(prefix="ghstrands_") as root:
+        src, model, hair = (os.path.join(root, d) for d in ("scene", "model", "hair"))
+        curves = os.path.join(root, "curves_reconstruction", "smoke")
+        write_colmap_scene(scene, src)
+        train_gaussians.main(["-s", src, "-m", model, "--sh_degree", "3",
+                              "--iterations", str(s1_iters), "--save_iterations", str(s1_iters),
+                              "--checkpoint_iterations", str(s1_iters)])
+        head_model = gm.load_ply(find_head_ply(model, s1_iters), 0, 3, device=dev)
+        head = stage2.make_head_fields(head_model)
+        n_head = head.xyz.shape[0]
+        out["head_rows"] = int(head.valid.sum())
+        # the pipeline's flags (run_pipeline.py:191-211)
+        flags = ["-s", src, "-m", model, "--sh_degree", "3", "--iterations", str(iters),
+                 "--checkpoint_iterations", str(iters), "--lambda_dmask", "0.1",
+                 "--lambda_dorient", "0.1", "--lambda_dsds", "0.01",
+                 "--num_strands", str(N_STRANDS), "--strand_length", str(STRAND_LEN),
+                 "--texture_size", str(TEXTURE), "--diffusion_input", str(DIFF_INPUT)]
+        pool = synthetic_scalp_pool(scfg.pool_size).to(dev)
+        radius = torch.tensor(1e-3, device=dev)        # strand_scale x scene scale 1
+        roots = sample_roots(pool, n_strands, torch.Generator(device=dev).manual_seed(SEED))
+
+        def run(name, main, argv, path):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_core.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(cuda_core.launches)
+            for k in ("raster_fwd", "raster_bwd"):
+                require(launches[k] == iters,
+                        f"{name}: {k} launched {launches[k]} times in {iters} steps")
+            recs = _metrics(path)
+            require(recs and all(np.isfinite(r["total"]) for r in recs),
+                    f"{name}: non-finite or missing losses {recs}")
+            rates = _window_rates(recs)
+            return state, {"iterations": iters, "wall_s": wall,
+                           "it_per_s_median": statistics.median(rates), "it_per_s_windows": rates,
+                           "losses": {str(r["step"]): {k: r[k] for k in ("total", "l1", "mask",
+                                                                         "orient", "sds")}
+                                      for r in recs},
+                           "num_rendered_logged": {str(r["step"]): r["num_rendered"] for r in recs},
+                           "launches": launches,
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+        s2, out["stage2"] = run("stage 2", train_latent_strands.main,
+                                flags + ["--model_path_hair", hair, "--use_diffusion"], hair)
+        with torch.no_grad():
+            hair2, _ = stage2.hair_fields_from_strands(s2.params, pool, scfg, roots, radius)
+            layout = stage2.concat_fields(head, hair2)
+            binned, _ = binned_fields(layout, 3, cam0, cfg)
+        out["stage2"]["layout_camera0"] = layout_stats(binned, n_head)
+        require(out["stage2"]["layout_camera0"]["hair_instances"] > 0,
+                "stage 2: the strands produce no instance at camera 0")
+        del binned
+        ck2 = os.path.join(hair, "checkpoints", f"{iters}.npz")
+        back2 = stage2.load_checkpoint(ck2, stage2.init_hair_state(scfg, device=dev))
+        require(back2.step == iters and torch.equal(back2.params.texture, s2.params.texture)
+                and all(torch.equal(a, b) for a, b in zip(back2.ema.parameters(),
+                                                           s2.ema.parameters())),
+                "stage 2: the checkpoint does not load back to the final state")
+        out["stage2"]["checkpoint_mb"] = os.path.getsize(ck2) / 1e6
+        del back2, s2
+
+        s3, out["stage3"] = run("stage 3", train_strands.main,
+                                flags + ["--model_path_hair", hair, "--model_path_curves", curves,
+                                         "--start_checkpoint_hair", ck2, "--use_sds"], curves)
+        with torch.no_grad():
+            binned, _ = binned_fields(stage2.concat_fields(
+                head, stage3.curves_fields(s3.params, s3.static, scfg, radius)), 3, cam0, cfg)
+        out["stage3"]["layout_camera0"] = layout_stats(binned, n_head)
+        require(out["stage3"]["layout_camera0"]["hair_instances"] > 0,
+                "stage 3: the strands produce no instance at camera 0")
+        del binned
+        back3 = stage3.load_checkpoint(os.path.join(curves, "checkpoints", f"{iters}.npz"), dev)
+        require(back3.step == iters and torch.equal(back3.params.dirs, s3.params.dirs),
+                "stage 3: the checkpoint does not load back to the final state")
+
+        cuda_core.reset_launch_counts()
+        pts = export_curves.main(["--data_dir", root, "--model_name", "smoke",
+                                  "--iter", str(iters)])
+        require(pts.shape == (n_strands, length, 3) and bool(np.isfinite(pts).all()),
+                f"export: strands of shape {pts.shape}, finite {bool(np.isfinite(pts).all())}")
+        require(np.array_equal(pts, stage3.export_points(s3)), "export: not the final strands")
+        out["export"] = {"shape": list(pts.shape), "launches": dict(cuda_core.launches),
+                         "files": sorted(os.listdir(os.path.join(curves, "strands")))}
+    return out, (layout, n_head, cam0)
+
+
+def kernel_strands_phase(torch, layout, cfg):
+    """Both compositing kernels and the cull at the strand layout (camera
+    0 of the final stage-2 state: the head and 990k strand Gaussians):
+    bit-identical forward, row-by-row backward (two runs bit-identical),
+    the card's warp masks against their plain mirror; times and bounds as
+    the bench kernel phases count them.  The plain walks are timed once."""
+    from gaussianhaircut_torch.ops.rasterize import common as C
+    from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
+    from gaussianhaircut_torch.tools.profile_fixed import binned_fields, cuda_ms
+
+    fields, n_head, cam0 = layout
+    binned, binning = binned_fields(fields, 3, cam0, cfg)
+    lay = (binned.payload, binned.chunk_start, binned.nchunks)
+    used_chunks = int(binned.nchunks.sum())
+    culled, masks = cull_stats(binned, WIDTH, HEIGHT, cfg)
+    stats = {}
+    t0 = time.perf_counter()
+    plain_buf = plain_core.raster_fwd_plain(*lay, WIDTH, HEIGHT, cfg, stats=stats, masks=masks)
+    torch.cuda.synchronize()
+    plain_fwd_s = time.perf_counter() - t0
+    got = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), "strand forward: non-finite output")
+    require(torch.equal(got, plain_buf), "strand forward: not bit-identical to its plain "
+            f"version (max err {float((got - plain_buf).abs().max())})")
+    gbuf = seeded_cotangent(torch, cfg, fields.xyz.device)
+    bargs = (*lay, got, gbuf, WIDTH, HEIGHT, cfg)
+    d1 = cuda_core.raster_bwd(*bargs)
+    d2 = cuda_core.raster_bwd(*bargs)
+    t0 = time.perf_counter()
+    plain = plain_core.raster_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    plain_bwd_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(d1).all()), "strand backward: non-finite output")
+    require(torch.equal(d1, d2), "strand backward: two runs differ")
+    rows = hold_dpay(d1, plain)
+    in_bytes = used_chunks * 16 * cfg.chunk * 4 + 2 * binned.num_tiles * 4
+    buf_bytes = binned.num_tiles * cfg.tile_pix * C.PAD_CHANNELS * 4
+    fwd_ms = cuda_ms(lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg), REPS)
+    bwd_ms = cuda_ms(lambda: cuda_core.raster_bwd(*bargs), REPS)
+    fb_ms, fb_by = bound_ms(in_bytes + buf_bytes,
+                            stats["kept"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_FWD)
+    bb_ms, bb_by = bound_ms(in_bytes + 2 * buf_bytes + used_chunks * C.GRAD_ROWS * cfg.chunk * 4,
+                            stats["kept"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_BWD)
+    return {"phase": "kernel_strands", **layout_stats(binned, n_head),
+            "tiles": binned.num_tiles, "binning_ms": cuda_ms(binning, 5),
+            "pairs_visited": stats["visited"], "pairs_visited_kept": stats["kept"],
+            "pairs_blended": stats["contrib"], "cull": culled,
+            "fwd_bit_identical": True, "bwd_runs_bit_identical": True, "bwd_rows": rows,
+            "bwd_max_abs_err": float((d1 - plain).abs().max()),
+            "raster_fwd": {"ms": fwd_ms, "plain_s_once": plain_fwd_s, "bound_ms": fb_ms,
+                           "bound_by": fb_by, "bound_share": fb_ms / fwd_ms},
+            "raster_bwd": {"ms": bwd_ms, "plain_s_once": plain_bwd_s, "bound_ms": bb_ms,
+                           "bound_by": bb_by, "bound_share": bb_ms / bwd_ms},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 

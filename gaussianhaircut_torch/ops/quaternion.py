@@ -24,3 +24,13 @@ def build_rotation(q: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([2 * (x * y - r * z), 1 - 2 * (x * x + z * z), 2 * (y * z + r * x)], dim=-1)
     row2 = torch.stack([2 * (x * z + r * y), 2 * (y * z - r * x), 1 - 2 * (x * x + y * y)], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def parallel_transport(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unnormalized quaternion [1 + a.b, a x b] rotating direction a onto b,
+    with a and b normalized first (general_utils.py:150-160).  It stays
+    unnormalized: ``build_rotation`` normalizes it."""
+    a = normalize(a)
+    b = normalize(b)
+    s = 1.0 + torch.sum(a * b, dim=-1, keepdim=True)
+    return torch.cat([s, torch.linalg.cross(a, b, dim=-1)], dim=-1)

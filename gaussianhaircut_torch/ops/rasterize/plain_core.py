@@ -47,7 +47,8 @@ class _Walk:
         self.done = torch.zeros((num_tiles, pix), dtype=torch.bool, device=device)
 
     def live_chunk_tiles(self, nchunks: torch.Tensor, k: int) -> torch.Tensor:
-        """Tiles that own a k-th chunk and still have a live pixel."""
+        """Tiles that own a k-th chunk and still have a live pixel (a set
+        that only shrinks as k grows)."""
         return torch.nonzero((nchunks > k) & ~self.done.all(dim=1))[:, 0]
 
 
@@ -93,6 +94,8 @@ def raster_fwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
     warp = warp_of_pixel(cfg).to(dev)
     for k in range(int(nc.max()) if num_tiles else 0):
         tiles = walk.live_chunk_tiles(nc, k)
+        if not len(tiles):
+            break                       # no tile is live at k, so none at k + 1
         pay = payload[cs[tiles] + k]
         mk = masks[cs[tiles] + k] if masks is not None else None
         pxt, pyt, t, done = px[tiles], py[tiles], walk.t[tiles], walk.done[tiles]
@@ -160,6 +163,8 @@ def raster_bwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
     cs, nc = chunk_start.long(), nchunks.long()
     for k in range(int(nc.max()) if num_tiles else 0):
         tiles = walk.live_chunk_tiles(nc, k)
+        if not len(tiles):
+            break
         chunks = cs[tiles] + k
         pay = payload[chunks]
         pxt, pyt, t, done = px[tiles], py[tiles], walk.t[tiles], walk.done[tiles]

@@ -62,26 +62,37 @@ def binned_inputs(params, alive, sh_degree: int, scene, cam_idx: int,
                   cfg: C.RasterConfig, device):
     """Render inputs of one camera, preprocessed and binned (no autograd).
     Returns (binned, a function that bins again)."""
-    from gaussianhaircut_torch.ops.rasterize.api import ndc_xy_to_pixel
-    from gaussianhaircut_torch.render.renderer import (
-        fields_from_params, prepare_raster_inputs)
+    from gaussianhaircut_torch.render.renderer import fields_from_params
+    with torch.no_grad():
+        return binned_fields(fields_from_params(params, alive), sh_degree,
+                             scene_camera(scene, cam_idx, device), cfg)
+
+
+def scene_camera(scene, cam_idx: int, device):
+    """Camera ``cam_idx`` of a scene, without residuals."""
     from gaussianhaircut_torch.scene.cameras import CameraBatch, camera_geom
     cams = scene.train_cameras
-    width, height = cams[cam_idx].width, cams[cam_idx].height
-    with torch.no_grad():
-        cb = CameraBatch.from_cameras(cams, device)
-        cam = camera_geom(cb.colmap_transform[cam_idx], cb.fovx[cam_idx],
-                          cb.fovy[cam_idx], width, height, None)
-        ndc, conic, colors, opacity, depth, valid = prepare_raster_inputs(
-            fields_from_params(params, alive), sh_degree, cam)
-        mean_pix = ndc_xy_to_pixel(ndc, width, height)
+    cb = CameraBatch.from_cameras(cams, device)
+    return camera_geom(cb.colmap_transform[cam_idx], cb.fovx[cam_idx], cb.fovy[cam_idx],
+                       cams[cam_idx].width, cams[cam_idx].height, None)
 
-        def binning():
-            pre = C.preprocess(mean_pix, conic, depth, valid, width, height, cfg,
-                               opacity=opacity)
-            return C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
-                                   width, height, cfg)
-        return binning(), binning
+
+@torch.no_grad()
+def binned_fields(fields, sh_degree: int, cam, cfg: C.RasterConfig):
+    """Activated fields seen by ``cam``, preprocessed and binned.  Returns
+    (binned, a function that bins again)."""
+    from gaussianhaircut_torch.ops.rasterize.api import ndc_xy_to_pixel
+    from gaussianhaircut_torch.render.renderer import prepare_raster_inputs
+    ndc, conic, colors, opacity, depth, valid = prepare_raster_inputs(
+        fields, sh_degree, cam)
+    mean_pix = ndc_xy_to_pixel(ndc, cam.width, cam.height)
+
+    def binning():
+        pre = C.preprocess(mean_pix, conic, depth, valid, cam.width, cam.height, cfg,
+                           opacity=opacity)
+        return C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
+                               cam.width, cam.height, cfg)
+    return binning(), binning
 
 
 def bench_binned(device, cfg: C.RasterConfig):

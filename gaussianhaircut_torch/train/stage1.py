@@ -164,9 +164,7 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     with torch.no_grad():
         new_params = state.model.params.map(
             lambda p, u: p + torch.where(ok, u, torch.zeros_like(u)), updates)
-        new_opt = optim.AdamState(new_opt.mu.map(_where_ok(ok), state.opt.mu),
-                                  new_opt.nu.map(_where_ok(ok), state.opt.nu),
-                                  torch.where(ok, new_opt.count, state.opt.count))
+        new_opt = optim.where_ok(ok, new_opt, state.opt)
         if trainable_cameras or trainable_intrinsics:
             new_cam_res, new_cam_opt = _camera_adam(state, gcam, cam_idx, opt_cfg)
         else:
@@ -179,10 +177,6 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     metrics["num_rendered"] = out["num_rendered"]
     metrics["grads_ok"] = ok
     return new_state, metrics
-
-
-def _where_ok(ok):
-    return lambda new, old: torch.where(ok, new, old)
 
 
 def _camera_adam(state: TrainState, gcam: CameraResiduals, cam_idx: int,

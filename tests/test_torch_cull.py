@@ -143,6 +143,30 @@ def test_cull_is_conservative(tile, chunk):
     assert (~used).sum() == 1 and (masks[~used] == 0).all()
 
 
+def test_cull_is_conservative_on_strand_splats():
+    """The stage-2/3 hair Gaussians: opacity 1, a cross-section of
+    sigma^2 = r^2 + 0.3 px^2 (r ~ 0.4 px: strand_scale 1e-3 seen from 2.5
+    units) and a long axis of half a segment, 0 to 30 px, at every angle,
+    crowded into one tile: every candidate pair is covered, and the boxes
+    of such thin splats still drop most (warp, instance) pairs."""
+    cfg = C.RasterConfig(tile_w=32, tile_h=32, chunk=64)
+    width, height = 72, 64
+    num_tiles = int(np.prod(cfg.grid(width, height)))
+    rng = np.random.default_rng(4)
+    cols = []
+    for _ in range(400):
+        half_len = rng.choice([0.0, rng.uniform(0.0, 3.0), rng.uniform(3.0, 30.0)])
+        a, b, c = _conic(half_len ** 2 + 0.3, rng.uniform(0.0, 0.3) + 0.3, rng.uniform(0, np.pi))
+        cols.append([rng.uniform(-4, width + 4), rng.uniform(-4, height + 4), a, b, c, 1.0])
+    lay = _layout(np.asarray(cols, F32), num_tiles, cfg.chunk)
+    masks = plain_core.warp_masks_plain(*lay, width, cfg)
+    cand = _candidates(*lay, width, cfg)
+    ok, n_cand = _covered(masks, cand, cfg)
+    assert ok and n_cand > 1000
+    kept = sum(int(((masks >> w) & 1).sum()) for w in range(32))
+    assert kept < 0.25 * int(lay[2].sum()) * cfg.chunk * 32
+
+
 def test_cull_edge_values():
     """op below 1/255 culls everywhere; non-finite, out-of-range,
     non-positive-definite and ill-conditioned geometry is never culled."""

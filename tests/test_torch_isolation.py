@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``gaussianhaircut_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``, nor a
 package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV);
-a CPU step and the stage-1 CLIs run with all of those unimportable; the
-entry points never pick the CPU on their own; and the kernel wrappers keep
-CUDA tensors away from the plain versions."""
+a CPU step, the stage-1 CLIs and the strand CLIs run with all of those
+unimportable; the entry points never pick the CPU on their own; and the
+kernel wrappers keep CUDA tensors away from the plain versions."""
 import ast
 import os
 import subprocess
@@ -97,6 +97,21 @@ _SCRIPT = textwrap.dedent("""
     assert state.step == 1
     render_gaussians.main(["-s", src, "-m", model, "--device", "cpu", "--sh_degree", "1"])
     assert len(os.listdir(os.path.join(model, "train", "ours_1", "renders"))) == 1
+
+    # the strand CLIs on that model: stage 2, stage 3 with a fresh SDS prior, export
+    from gaussianhaircut_torch.cli import export_curves, train_latent_strands, train_strands
+    strand = ["-s", src, "-m", model, "--device", "cpu", "--sh_degree", "1",
+              "--num_strands", "8", "--strand_length", "4", "--texture_size", "8",
+              "--diffusion_input", "4", "--iterations", "1", "--checkpoint_iterations", "1"]
+    hair = os.path.join(root, "hair")
+    curves = os.path.join(root, "curves_reconstruction", "c")
+    train_latent_strands.main(strand + ["--model_path_hair", hair])
+    train_strands.main(strand + ["--model_path_hair", hair, "--model_path_curves", curves,
+                                 "--start_checkpoint_hair",
+                                 os.path.join(hair, "checkpoints", "1.npz"), "--use_sds"])
+    pts = export_curves.main(["--data_dir", root, "--model_name", "c", "--iter", "1",
+                              "--device", "cpu"])
+    assert pts.shape == (8, 4, 3) and np.isfinite(pts).all(), pts.shape
     assert all(n == 0 for n in cuda_core.launches.values()), cuda_core.launches
 
     # with no device and no CUDA, train() raises instead of using the CPU
@@ -168,3 +183,14 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     for main in (train_gaussians.main, render_gaussians.main):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "model")])
+    from gaussianhaircut_torch.cli import export_curves, train_latent_strands, train_strands
+    strand = ["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "model"),
+              "--model_path_hair", str(tmp_path / "hair")]
+    for main, argv in ((train_latent_strands.main, strand),
+                       (train_strands.main, strand + [
+                           "--model_path_curves", str(tmp_path / "curves"),
+                           "--start_checkpoint_hair", str(tmp_path / "missing.npz")]),
+                       (export_curves.main, ["--data_dir", str(tmp_path / "missing"),
+                                             "--model_name", "m"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
