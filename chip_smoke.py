@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,cli,
-                                    strands,kernel_strands]
+                                    strands,kernel_strands,pipeline]
 
-Drives the port's main paths, the stage-1 trainer and its CLIs and the
-strand stack's CLIs, on the bench scene (seeded synthetic point cloud, 100k
-Gaussians, 960x544, SH degree 3, four views, BARF camera residuals
-trainable, 32x32 tiles, chunk 256):
+Drives the port's main paths, the stage-1 trainer and its CLIs, the
+strand stack's CLIs and the whole reconstruction pipeline, on the bench
+scene (seeded synthetic point cloud, 100k Gaussians, 960x544, SH degree 3,
+four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
 
 1. env          -- requires CUDA; prints the card's name and power limit;
 2. build        -- compiles the CUDA kernels from the checkout's sources;
@@ -45,7 +45,25 @@ trainable, 32x32 tiles, chunk 256):
                    the head and 990k strand Gaussians): the forward bit for
                    bit, the backward row by row (two runs bit-identical) and
                    the card's warp masks against their plain versions, with
-                   the kernels' times and bounds.
+                   the kernels' times and bounds;
+10. pipeline    -- the reconstruction pipeline from a scene directory:
+                   8 views at 1920x1088 rendered from the strand scene of
+                   ``strands`` (images, hair / face / body masks), COLMAP
+                   text with the 100k points, a closed sphere head of
+                   9,936 faces and its scalp cap as the FLAME fit;
+                   ``cli.run_pipeline`` with 30 / 20 / 20 iterations and
+                   the strand defaults (filter, resize, orientation maps,
+                   colmap_to_h3ds, stage 1, crop and head filter, synthetic
+                   GT, stages 2 and 3, export_curves, render_strands), then
+                   ``cli.export_strands`` at 30,000 strands and
+                   ``cli.metrics`` on the renders against images_2; every
+                   stage's files load back, one forward launch per rendered
+                   view and one forward and backward per step, an
+                   orientation map and winding numbers on the card against
+                   the CPU; per-stage seconds, orientation ms per view,
+                   winding-number terms per second, LPIPS ms per pair,
+                   render_strands s per view, export_strands s and peak
+                   memory.
 
 Each phase prints one JSON line; then one line lists every kernel, then the
 card's name and power limit, and the last line is the device record.  Any
@@ -67,7 +85,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "cli",
-          "strands", "kernel_strands")
+          "strands", "kernel_strands", "pipeline")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -77,6 +95,13 @@ REPS = 20          # timed repetitions of every CUDA-event timing
 # widths are the defaults of models/diffusion.py
 N_STRANDS, STRAND_LEN, TEXTURE, DIFF_INPUT = 10_000, 100, 256, 32
 S1_ITERS, STRAND_ITERS = 20, 40
+# the pipeline phase: the raw images at 1920x1088 (images_2 is the bench's
+# 960x544), 8 views, iterations per stage, the export's strand count
+PIPE_WIDTH, PIPE_HEIGHT, PIPE_VIEWS, PIPE_ITERS, EXPORT_STRANDS = 1920, 1088, 8, (30, 20, 20), 30_000
+# the card's results against the CPU's: the orientation map (the CPU test's
+# tolerances) and the winding number
+ORIENT_FILTERED_ATOL, ORIENT_RESP_REL, ORIENT_VAR_ATOL = 1e-5, 1e-4, 1e-4
+WINDING_ATOL, WINDING_MARGIN = 1e-9, 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -202,6 +227,8 @@ def main() -> int:
         require(ph in PHASES, f"unknown phase {ph!r}")
     require("kernel_strands" not in phases or "strands" in phases,
             "kernel_strands holds the kernels at the layout the strands phase trains")
+    require("pipeline" not in phases or "strands" in phases,
+            "pipeline renders its scene from the layout the strands phase trains")
 
     import torch
     if not torch.cuda.is_available():
@@ -352,6 +379,13 @@ def main() -> int:
             t0 = time.perf_counter()
             res = kernel_strands_phase(torch, layout, cfg)
             res["seconds"] = time.perf_counter() - t0
+            emit(res)
+        if "pipeline" in phases:
+            t0 = time.perf_counter()
+            res = pipeline_phase(torch, layout, cfg)
+            res["seconds"] = time.perf_counter() - t0
+            for name in ("raster_fwd", "raster_bwd"):
+                kernels[name]["launches_pipeline"] = res["launches"][name]
             emit(res)
         del layout
 
@@ -822,6 +856,275 @@ def kernel_strands_phase(torch, layout, cfg):
             "raster_bwd": {"ms": bwd_ms, "plain_s_once": plain_bwd_s, "bound_ms": bb_ms,
                            "bound_by": bb_by, "bound_share": bb_ms / bwd_ms},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+class StageClock:
+    """Standard output for ``cli.run_pipeline``: passes everything on and,
+    at each of its "=== <stage>: done ===" lines, records the seconds since
+    the previous one (after a device sync) and the kernel launches in
+    between; keeps the selection-tier line of the sphere crop."""
+
+    def __init__(self, torch, stream, launches):
+        self.torch, self.stream, self.launches = torch, stream, launches
+        self.last, self.prev = time.perf_counter(), dict(launches)
+        self.seconds, self.stage_launches, self.notes = {}, {}, []
+
+    def write(self, text):
+        for m in re.finditer(r"=== (\S+): done ===", text):
+            self.torch.cuda.synchronize()
+            now = time.perf_counter()
+            stage = m.group(1)
+            self.seconds[stage] = now - self.last
+            self.stage_launches[stage] = {k: v - self.prev[k] for k, v in self.launches.items()}
+            self.last, self.prev = now, dict(self.launches)
+        if "[scale_scene_into_sphere]" in text:
+            self.notes.append(text.strip())
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def pipeline_scene(torch, fields, n_head, root, cfg):
+    """The pipeline's input scene under ``root``: PIPE_VIEWS views on the
+    bench ring at PIPE_WIDTH x PIPE_HEIGHT rendered from ``fields`` (the
+    image, the hair mask from the label channel, the body mask) with the
+    head rows (the first ``n_head``) above y = 0 left out, so that the
+    strands on the scalp cap show from every view; COLMAP text
+    with the bench blob's 100k points, and a 9,936-face sphere head under
+    the scalp cap with its cap as the scalp.  Returns the build seconds and
+    each view's hair share (mask > 127)."""
+    from gaussianhaircut_torch.render.renderer import default_background, render_fields
+    from gaussianhaircut_torch.scene.cameras import CameraBatch, camera_geom
+    from gaussianhaircut_torch.scene.synthetic import (
+        bench_scene, ring_cameras, sphere_mesh, write_pipeline_scene)
+
+    import dataclasses
+    t0 = time.perf_counter()
+    dev = fields.xyz.device
+    valid = fields.valid.clone()
+    valid[:n_head] &= fields.xyz[:n_head, 1] < 0
+    fields = dataclasses.replace(fields, valid=valid)
+    cams = ring_cameras(PIPE_VIEWS, PIPE_WIDTH, PIPE_HEIGHT)
+    batch = CameraBatch.from_cameras(cams, dev)
+    bg = default_background(False, dev)
+    u8 = lambda t: (t.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+    images, hair, body = [], [], []
+    with torch.no_grad():
+        for i in range(PIPE_VIEWS):
+            geom = camera_geom(batch.colmap_transform[i], batch.fovx[i], batch.fovy[i],
+                               PIPE_WIDTH, PIPE_HEIGHT)
+            out = render_fields(fields, 3, geom, bg, cfg)
+            images.append(u8(out["render"].permute(1, 2, 0)))
+            hair.append(u8(out["mask"][0]))
+            body.append(u8(out["mask"][1]))
+    blob = bench_scene(P, 8, 8, 1, SEED)            # the bench blob's points
+    write_pipeline_scene(root, cams, np.stack(images), np.stack(hair), np.stack(body),
+                         blob.points, blob.colors, head=sphere_mesh())
+    share = [float((h > 127).mean()) for h in hair]
+    require(min(share) > 0, f"pipeline: a view renders no hair {share}")
+    return time.perf_counter() - t0, share
+
+
+def pipeline_phase(torch, layout, cfg):
+    """``cli.run_pipeline`` on a scene rendered from the strand layout,
+    then ``cli.export_strands`` and ``cli.metrics``; the checks and numbers
+    of the module docstring's item 10."""
+    import contextlib
+    import pickle
+    import shutil
+    import tempfile
+    from gaussianhaircut_torch.cli import export_strands, metrics, render_strands, run_pipeline
+    from gaussianhaircut_torch.cli.metrics import load_rgb
+    from gaussianhaircut_torch.models import gaussian_model as gm
+    from gaussianhaircut_torch.models.textured_strands import TexturedStrandsConfig
+    from gaussianhaircut_torch.ops.lpips import lpips_or_none
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.preprocessing import orientation_maps as om
+    from gaussianhaircut_torch.preprocessing.scene_tools import winding_numbers
+    from gaussianhaircut_torch.tools.profile_fixed import cuda_ms
+    from gaussianhaircut_torch.train import stage2, stage3
+    from gaussianhaircut_torch.utils import mesh as mesh_util
+    from gaussianhaircut_torch.utils.image import read_png
+
+    fields, n_head = layout[:2]
+    dev = fields.xyz.device
+    i1, i2, i3 = PIPE_ITERS
+    names = [f"{i:06d}.png" for i in range(PIPE_VIEWS)]
+    out = {"phase": "pipeline", "views": PIPE_VIEWS, "raw_size": [PIPE_WIDTH, PIPE_HEIGHT],
+           "iterations": list(PIPE_ITERS)}
+    with tempfile.TemporaryDirectory(prefix="ghpipe_") as root:
+        data = os.path.join(root, "scene")
+        out["scene_build_s"], out["hair_share_by_view"] = pipeline_scene(
+            torch, fields, n_head, data, cfg)
+        del fields
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_core.reset_launch_counts()
+        clock = StageClock(torch, sys.stdout, cuda_core.launches)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(clock):
+            run_pipeline.main(["--data_path", data, "--iters1", str(i1), "--iters2", str(i2),
+                               "--iters3", str(i3)])
+        torch.cuda.synchronize()
+        out["pipeline_s"] = time.perf_counter() - t0
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["stage_seconds"] = clock.seconds
+        out["launches_by_stage"] = clock.stage_launches
+        out["launches"] = dict(cuda_core.launches)
+        out["sphere_crop"] = clock.notes
+        # one forward per rendered view, one forward and backward per step
+        expect = {"stage1": (i1, i1), "render_gaussians": (PIPE_VIEWS, 0),
+                  "stage2": (i2, i2), "stage3": (i3, i3), "export": (PIPE_VIEWS, 0)}
+        stages = ("frames", "colmap", "masks", "resize", "orientations", "parsing", "stage1",
+                  "flame", "crop", "render_gaussians", "stage2", "stage3", "export")
+        require(list(clock.seconds) == list(stages),
+                f"pipeline: stages {list(clock.seconds)}, expected {list(stages)}")
+        for st in stages:
+            got = clock.stage_launches[st]
+            want = dict(zip(("raster_fwd", "raster_bwd"), expect.get(st, (0, 0))))
+            require(all(got[k] == v for k, v in want.items()),
+                    f"pipeline: {st} launched {got}, expected {want}")
+
+        # every stage's files exist and load back
+        model = os.path.join(data, "3d_gaussian_splatting", "stage1")
+        for sub in ("images_2", "images_4", "masks_2/hair", "masks_4/body",
+                    "orientations_2/angles", "orientations_2/vars", "orientations_2/filtered",
+                    "orientations_2/vis"):
+            require(len(os.listdir(os.path.join(data, sub))) == PIPE_VIEWS, f"pipeline: {sub}")
+        require(read_png(os.path.join(data, "images_2", names[0])).shape == (HEIGHT, WIDTH, 3),
+                "pipeline: images_2 is not the bench size")
+        for name in names:
+            v = np.load(os.path.join(data, "orientations_2", "vars", name[:-4] + ".npy"))
+            require(v.dtype == np.float16 and np.isfinite(v).all(), "pipeline: variance npy")
+        with np.load(os.path.join(data, "cameras.npz")) as z:
+            require(len(z.files) == 2 * PIPE_VIEWS, f"pipeline: cameras.npz {z.files}")
+        with open(os.path.join(data, "scale.pickle"), "rb") as f:
+            out["scale"] = pickle.load(f)
+        rows = {}
+        for sub in ("point_cloud", "point_cloud_cropped", "point_cloud_filtered"):
+            st = gm.load_ply(os.path.join(model, sub, f"iteration_{i1}", "raw_point_cloud.ply"),
+                             0, 3, device="cpu")
+            rows[sub] = st.num_alive()
+        require(rows["point_cloud"] >= rows["point_cloud_cropped"]
+                >= rows["point_cloud_filtered"] > 0, f"pipeline: PLY rows {rows}")
+        out["ply_rows"] = rows
+        scfg = TexturedStrandsConfig(num_strands=N_STRANDS, texture_size=TEXTURE,
+                                     strand_length=STRAND_LEN, diffusion_input=DIFF_INPUT,
+                                     use_diffusion=True)
+        ck2 = stage2.load_checkpoint(
+            os.path.join(data, "strands_reconstruction", "stage2", "checkpoints", f"{i2}.npz"),
+            stage2.init_hair_state(scfg, device=dev))
+        ck3 = stage3.load_checkpoint(
+            os.path.join(data, "curves_reconstruction", "stage3", "checkpoints", f"{i3}.npz"), dev)
+        require(ck2.step == i2 and ck3.step == i3, "pipeline: checkpoints do not load back")
+        del ck2
+        with open(os.path.join(data, "curves_reconstruction", "stage3", "strands",
+                               f"{i3}_strands.pkl"), "rb") as f:
+            curves = pickle.load(f)
+        require(curves.shape == (N_STRANDS, STRAND_LEN, 3) and np.isfinite(curves).all(),
+                f"pipeline: exported curves {curves.shape}")
+        require(np.array_equal(curves, stage3.export_points(ck3)), "pipeline: export differs")
+        del ck3
+        hair_dir = os.path.join(data, "strands_reconstruction", "stage2", "train", f"ours_{i1}")
+        kinds = sorted(os.listdir(hair_dir))
+        require(len(kinds) == 7 and all(len(os.listdir(os.path.join(hair_dir, k))) == PIPE_VIEWS
+                                        for k in kinds), f"pipeline: render_strands {kinds}")
+
+        # the orientation map of one view on the card and on the CPU
+        img = read_png(os.path.join(data, "images_2", names[0]))
+        deg_c, var_c, filt_c = om.calc_orientation_map(img, device=dev)
+        deg_h, var_h, filt_h = om.calc_orientation_map(img, device="cpu")
+        bank, _ = om.build_gabor_bank(180)
+        with torch.no_grad():
+            top2 = torch.topk(om.gabor_responses(torch.from_numpy(filt_h),
+                                                 torch.from_numpy(bank)), 2, dim=0).values
+        clear = ((top2[0] - top2[1]) > ORIENT_RESP_REL * top2[0]).numpy()
+        orient = {"max_err_filtered": float(np.abs(filt_c - filt_h).max()),
+                  "clear_share": float(clear.mean()),
+                  "deg_mismatch_clear": int((deg_c != deg_h)[clear].sum()),
+                  "deg_mismatch_near_ties": int((deg_c != deg_h)[~clear].sum()),
+                  "max_err_var_clear": float(np.abs(var_c - var_h)[clear].max())}
+        require(orient["max_err_filtered"] <= ORIENT_FILTERED_ATOL
+                and orient["deg_mismatch_clear"] == 0
+                and orient["max_err_var_clear"] <= ORIENT_VAR_ATOL,
+                f"pipeline: orientation map on the card differs from the CPU's {orient}")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            om.calc_orientation_map(img, device=dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        orient["ms_per_view"] = statistics.median(times)
+        gray = torch.as_tensor(np.asarray(img, np.float32) / 255.0 @ np.array(
+            [0.2989, 0.5870, 0.1140], np.float32), device=dev)
+        bank_d, thetas_d = (torch.as_tensor(a, device=dev) for a in om.build_gabor_bank(180))
+        with torch.no_grad():
+            orient["device_ms_per_view"] = cuda_ms(lambda: om.orients_from_filtered(
+                om.difference_of_gaussians(gray, 0.4, 10.0), bank_d, thetas_d, 180), 5)
+        out["orientation"] = orient
+
+        # render_strands again, timed on its own
+        cuda_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        render_strands.main(["-s", data, "-m", model, "--model_hair_path",
+                             os.path.join(root, "rerender"), "--checkpoint_curves",
+                             os.path.join(data, "curves_reconstruction", "stage3",
+                                          "checkpoints", f"{i3}.npz"), "--skip_test"])
+        torch.cuda.synchronize()
+        out["render_strands_s_per_view"] = (time.perf_counter() - t0) / PIPE_VIEWS
+        require(cuda_core.launches["raster_fwd"] == PIPE_VIEWS
+                and cuda_core.launches["raster_bwd"] == 0,
+                f"pipeline: render_strands launched {dict(cuda_core.launches)}")
+
+        # export_strands at 30,000 strands, pruned by the head on the card
+        flame = os.path.join(data, "flame_fitting", "stage1")
+        t0 = time.perf_counter()
+        exp = export_strands.main(["--data_dir", data, "--model_name", "stage2",
+                                   "--flame_mesh_dir", flame, "--iter", str(i2),
+                                   "--num_strands", str(EXPORT_STRANDS),
+                                   "--texture_size", str(TEXTURE)])
+        torch.cuda.synchronize()
+        pts = exp["points"]
+        require(pts.shape[1:] == (STRAND_LEN, 3) and pts.shape[0] > 0
+                and np.isfinite(pts).all(), f"pipeline: export_strands {pts.shape}")
+        out["export_strands"] = {"s": time.perf_counter() - t0, "kept": int(exp["keep"].sum()),
+                                 "strands": EXPORT_STRANDS, "sdf_terms": exp["sdf_terms"],
+                                 "sdf_s": exp["sdf_s"],
+                                 "winding_terms_per_s": exp["sdf_terms"] / exp["sdf_s"]}
+
+        # the winding number of sampled points on the card and on the CPU
+        head = mesh_util.load_obj(os.path.join(flame, "stage_3", "mesh_final.obj"))
+        rng = np.random.default_rng(SEED)
+        flat = pts.reshape(-1, 3)
+        sample = np.concatenate([flat[rng.choice(len(flat), 2048, replace=False)],
+                                 rng.uniform(-0.15, 0.15, (2048, 3)) + [0.0, 0.05, 0.0]])
+        wn_c = winding_numbers(sample, head, dev).cpu().numpy()
+        wn_h = winding_numbers(sample, head, "cpu").numpy()
+        far = np.abs(wn_h - 0.5) > WINDING_MARGIN
+        out["winding_check"] = {"points": len(sample), "inside": int((wn_h > 0.5).sum()),
+                                "near_surface": int((~far).sum()),
+                                "max_abs_err": float(np.abs(wn_c - wn_h).max())}
+        require(out["winding_check"]["max_abs_err"] <= WINDING_ATOL
+                and np.array_equal((wn_c > 0.5)[far], (wn_h > 0.5)[far]),
+                f"pipeline: winding numbers on the card differ {out['winding_check']}")
+
+        # metrics: the strand renders against images_2
+        method = os.path.join(root, "eval", "test", "ours")
+        shutil.copytree(os.path.join(hair_dir, "renders"), os.path.join(method, "renders"))
+        shutil.copytree(os.path.join(data, "images_2"), os.path.join(method, "gt"))
+        t0 = time.perf_counter()
+        res = metrics.main(["-m", os.path.join(root, "eval")])[os.path.join(root, "eval")]
+        out["metrics"] = dict(res["ours"], s=time.perf_counter() - t0)
+        require(all(np.isfinite(v) for k, v in res["ours"].items() if k != "LPIPS_kind")
+                and "LPIPS[untrained-seeded]" in res["ours"], f"pipeline: metrics {res}")
+        lp = lpips_or_none(None, allow_untrained=True, device=dev)
+        r = load_rgb(os.path.join(method, "renders", names[0]), dev)[None]
+        g = load_rgb(os.path.join(method, "gt", names[0]), dev)[None]
+        out["lpips_ms_per_pair"] = cuda_ms(lambda: lp.distance(r, g), 5)
+        out["lpips_kind"] = lp.kind
+    return out
 
 
 if __name__ == "__main__":

@@ -71,14 +71,36 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _resample_coeffs(in_size: int, out_size: int):
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """PIL's Lanczos kernel (a sinc windowed by sinc(x / 3) on [-3, 3)),
+    element by element through libm's ``sin``, as PIL's C code calls it,
+    so that no coefficient rounds differently."""
+    flat = [_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0
+            for v in np.asarray(x, np.float64).ravel().tolist()]
+    return np.asarray(flat, np.float64).reshape(np.shape(x))
+
+
+# PIL's resampling filters: (kernel, support)
+_FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+
+
+def _resample_coeffs(in_size: int, out_size: int, resample: str = "bicubic"):
     """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
-    bicubic filter (support 2, widened by the scale when shrinking): per
-    output index the first input index and the integer coefficients
-    [out_size, ksize] with 22 fraction bits (zero past each window)."""
+    bicubic (support 2) or Lanczos (support 3) filter, the support widened by
+    the scale when shrinking: per output index the first input index and the
+    integer coefficients [out_size, ksize] with 22 fraction bits (zero past
+    each window)."""
+    kernel, base_support = _FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = base_support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # float -> int casts truncate toward zero, as in C
@@ -86,8 +108,8 @@ def _resample_coeffs(in_size: int, out_size: int):
     xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
     x = np.arange(ksize)[None, :]
     inside = x < xmax[:, None]
-    k = np.where(inside, _bicubic(((x + xmin[:, None]) - center[:, None] + 0.5)
-                                  * (1.0 / filterscale)), 0.0)
+    k = np.where(inside, kernel(((x + xmin[:, None]) - center[:, None] + 0.5)
+                                * (1.0 / filterscale)), 0.0)
     ww = np.zeros(out_size)
     for i in range(ksize):                  # PIL's order of summation
         ww = ww + k[:, i]
@@ -97,29 +119,45 @@ def _resample_coeffs(in_size: int, out_size: int):
     return xmin, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_matrix(in_size: int, out_size: int, resample: str) -> np.ndarray:
+    """The pass as a dense [out_size, in_size] float64 matrix of PIL's
+    integer coefficients."""
+    xmin, kk = _resample_coeffs(in_size, out_size, resample)
+    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :], in_size - 1)
+    m = np.zeros((out_size, in_size), np.float64)
+    np.add.at(m, (np.repeat(np.arange(out_size), kk.shape[1]), idx.ravel()),
+              kk.ravel().astype(np.float64))
+    return m
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   resample: str = "bicubic", device="cpu") -> np.ndarray:
     """One pass of PIL's 8-bit resample along ``axis`` of [H, W, C] uint8:
-    integer sums of the fixed-point coefficients, rounded and clipped."""
-    xmin, kk = _resample_coeffs(img.shape[axis], out_size)
-    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :],
-                     img.shape[axis] - 1)                    # [out, ksize]
-    src = np.moveaxis(img.astype(np.int64), axis, 0)        # [in, ..., C]
-    ss = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
-    for i in range(kk.shape[1]):
-        ss += src[idx[:, i]] * kk[:, i].reshape((-1,) + (1,) * (src.ndim - 1))
+    integer sums of the fixed-point coefficients, rounded and clipped.  The
+    sums are one float64 matrix product on ``device``: every product and
+    partial sum is an integer below 2^53, so it is exact in any order of
+    summation."""
+    m = torch.as_tensor(_resample_matrix(img.shape[axis], out_size, resample), device=device)
+    src = np.moveaxis(img, axis, 0)                         # [in, ..., C]
+    flat = torch.as_tensor(src.reshape(src.shape[0], -1), device=device).to(torch.float64)
+    ss = (m @ flat).cpu().numpy().reshape((out_size,) + src.shape[1:])
+    ss = ss + (1 << (_PRECISION_BITS - 1))
     out = np.where(ss <= 0, 0, np.where(ss >= (1 << _PRECISION_BITS << 8), 255,
-                                        ss >> _PRECISION_BITS))
+                                        np.floor(ss / (1 << _PRECISION_BITS))))
     return np.moveaxis(out.astype(np.uint8), 0, axis)
 
 
-def _resize_uint8(img: np.ndarray, resolution: tuple[int, int]) -> np.ndarray:
-    """PIL's ``Image.resize(resolution)`` of an 8-bit image [H, W(, C)], in
+def _resize_uint8(img: np.ndarray, resolution: tuple[int, int],
+                  resample: str = "bicubic", device="cpu") -> np.ndarray:
+    """PIL's ``Image.resize(resolution, resample)`` of an 8-bit image
+    [H, W(, C)] for ``resample`` "bicubic" (PIL's default) or "lanczos", in
     PIL's integer arithmetic: a copy when the size is unchanged, else its
-    bicubic resample (a = -0.5, widened when shrinking), the horizontal
-    pass and then the vertical, each only where that size changes and each
-    rounded and clipped to 8 bits.  Gray + alpha and RGBA are resized
-    premultiplied (``La`` / ``RGBa``: round(c * a / 255)) and divided back
-    with PIL's flooring division (c * 255 // a where 0 < a < 255)."""
+    resample (widened when shrinking), the horizontal pass and then the
+    vertical, each only where that size changes and each rounded and
+    clipped to 8 bits.  Gray + alpha and RGBA are resized premultiplied
+    (``La`` / ``RGBa``: round(c * a / 255)) and divided back with PIL's
+    flooring division (c * 255 // a where 0 < a < 255).  The passes' sums
+    run on the torch ``device``."""
     w, h = resolution
     if img.shape[1] == w and img.shape[0] == h:
         return img.copy()
@@ -130,9 +168,9 @@ def _resize_uint8(img: np.ndarray, resolution: tuple[int, int]) -> np.ndarray:
         t = x[..., :-1] * x[..., -1:] + 128
         x = np.concatenate([((t >> 8) + t) >> 8, x[..., -1:]], -1).astype(np.uint8)
     if x.shape[1] != w:
-        x = _resample_axis(x, w, 1)
+        x = _resample_axis(x, w, 1, resample, device)
     if x.shape[0] != h:
-        x = _resample_axis(x, h, 0)
+        x = _resample_axis(x, h, 0, resample, device)
     if alpha:
         a = x[..., -1:].astype(np.int64)
         c = x[..., :-1].astype(np.int64)

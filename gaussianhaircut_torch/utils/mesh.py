@@ -1,7 +1,8 @@
-"""Mesh utilities for the scalp: OBJ reading (with UVs), area-weighted
-surface sampling, UV interpolation and tangent frames (a numpy copy of
-``gaussianhaircut_tpu/utils/mesh.py``'s functions that the textured-strands
-scalp pool uses).  Initialisation-time host code, off the training step."""
+"""Mesh utilities for the scalp and the head: OBJ reading (with UVs) and
+writing, area-weighted surface sampling, UV interpolation and tangent
+frames (a numpy copy of ``gaussianhaircut_tpu/utils/mesh.py``'s functions
+that the textured-strands scalp pool and the pipeline use).
+Initialisation-time host code, off the training step."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -39,6 +40,23 @@ def load_obj(path: str) -> Mesh:
     return Mesh(np.asarray(verts, np.float64), np.asarray(faces, np.int64),
                 np.asarray(uvs, np.float64) if uvs else None,
                 np.asarray(face_uvs, np.int64) if face_uvs else None)
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray,
+             uvs=None, face_uvs=None) -> None:
+    """An OBJ that ``load_obj`` reads back (1-based indices)."""
+    with open(path, "w") as f:
+        for v in verts:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        if uvs is not None:
+            for t in uvs:
+                f.write(f"vt {t[0]} {t[1]}\n")
+        for i, face in enumerate(faces):
+            if uvs is not None and face_uvs is not None:
+                t = face_uvs[i]
+                f.write(f"f {face[0]+1}/{t[0]+1} {face[1]+1}/{t[1]+1} {face[2]+1}/{t[2]+1}\n")
+            else:
+                f.write(f"f {face[0]+1} {face[1]+1} {face[2]+1}\n")
 
 
 def face_areas(mesh: Mesh) -> np.ndarray:

@@ -1,15 +1,17 @@
 """The port stands alone: no module of ``gaussianhaircut_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``, nor a
 package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV);
-a CPU step, the stage-1 CLIs and the strand CLIs run with all of those
-unimportable; the entry points never pick the CPU on their own; and the
-kernel wrappers keep CUDA tensors away from the plain versions."""
+a CPU step, the stage-1 CLIs, the strand CLIs, the orchestrator on a toy
+scene and the metrics CLI run with all of those unimportable; the entry
+points never pick the CPU on their own; and the kernel wrappers keep CUDA
+tensors away from the plain versions."""
 import ast
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -112,6 +114,30 @@ _SCRIPT = textwrap.dedent("""
     pts = export_curves.main(["--data_dir", root, "--model_name", "c", "--iter", "1",
                               "--device", "cpu"])
     assert pts.shape == (8, 4, 3) and np.isfinite(pts).all(), pts.shape
+
+    # the orchestrator on a toy scene (UNet cut to channels 32, 64), then
+    # the metrics CLI on its strand renders
+    import functools, shutil
+    from gaussianhaircut_torch.cli import metrics, run_pipeline
+    from gaussianhaircut_torch.models import prior_io
+    from gaussianhaircut_torch.scene.synthetic import toy_pipeline_scene
+    from gaussianhaircut_torch.train import stage2
+    for mod in (stage2, prior_io):
+        mod.DiffusionConfig = functools.partial(mod.DiffusionConfig, channels=(32, 64),
+                                                depths=(1, 1))
+    data = os.path.join(root, "pipeline")
+    toy_pipeline_scene(data)
+    run_pipeline.main(["--data_path", data, "--device", "cpu", "--iters1", "2", "--iters2", "1",
+                       "--iters3", "1", "--extra_train_args",
+                       "--tile 16 --gaussian_capacity 512 --test_iterations -1",
+                       "--extra_strand_args",
+                       "--num_strands 8 --texture_size 16 --strand_length 8 --diffusion_input 4"])
+    ev = os.path.join(root, "eval", "test", "ours")
+    shutil.copytree(os.path.join(data, "strands_reconstruction", "stage2", "train", "ours_2",
+                                 "renders"), os.path.join(ev, "renders"))
+    shutil.copytree(os.path.join(data, "images_2"), os.path.join(ev, "gt"))
+    res = metrics.main(["-m", os.path.join(root, "eval"), "--device", "cpu"])
+    assert math.isfinite(res[os.path.join(root, "eval")]["ours"]["PSNR"]), res
     assert all(n == 0 for n in cuda_core.launches.values()), cuda_core.launches
 
     # with no device and no CUDA, train() raises instead of using the CPU
@@ -170,8 +196,10 @@ def test_kernel_checks_reject_cpu_tensors():
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
-    """No device given means CUDA: without it resolve_device and both CLIs
-    raise (before reading any scene) instead of running on the CPU."""
+    """No device given means CUDA: without it resolve_device, the CLIs
+    (``convert`` aside: it only runs COLMAP), the orientation maps, the
+    winding number and the resize raise (before reading any file) instead
+    of running on the CPU."""
     from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
     from gaussianhaircut_torch.device import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -183,9 +211,29 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     for main in (train_gaussians.main, render_gaussians.main):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "model")])
-    from gaussianhaircut_torch.cli import export_curves, train_latent_strands, train_strands
+    from gaussianhaircut_torch.cli import (
+        export_curves, export_strands, metrics, render_strands, run_pipeline,
+        train_latent_strands, train_strands)
+    from gaussianhaircut_torch.preprocessing import orientation_maps, scene_tools
+    from gaussianhaircut_torch.scene.synthetic import sphere_mesh
     strand = ["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "model"),
               "--model_path_hair", str(tmp_path / "hair")]
+    missing = str(tmp_path / "missing")
+    for call in (lambda: orientation_maps.calc_orientation_map(np.zeros((8, 8, 3))),
+                 lambda: scene_tools.mesh_sdf_sign(np.zeros((2, 3)), sphere_mesh(n_lat=4,
+                                                                                  n_lon=4)),
+                 lambda: scene_tools.resize_images(missing),
+                 lambda: render_strands.main(strand[:-2] + [
+                     "--model_hair_path", missing, "--checkpoint_curves", missing]),
+                 lambda: export_strands.main(["--data_dir", missing, "--model_name", "m"]),
+                 lambda: metrics.main(["-m", missing]),
+                 lambda: run_pipeline.main(["--data_path", missing]),
+                 lambda: orientation_maps.main(sum(
+                     ([f"--{k}", missing] for k in ("img_path", "mask_path", "orient_dir",
+                                                    "conf_dir", "filtered_img_dir",
+                                                    "vis_img_dir")), []))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
     for main, argv in ((train_latent_strands.main, strand),
                        (train_strands.main, strand + [
                            "--model_path_curves", str(tmp_path / "curves"),
