@@ -860,20 +860,21 @@ def kernel_strands_phase(torch, layout, cfg):
 
 class StageClock:
     """Standard output for ``cli.run_pipeline``: passes everything on and,
-    at each of its "=== <stage>: done ===" lines, records the seconds since
-    the previous one (after a device sync) and the kernel launches in
-    between; keeps the selection-tier line of the sphere crop."""
+    at each line where it reports a stage done (``run_pipeline.stages_done``),
+    records the seconds since the previous one (after a device sync) and the
+    kernel launches in between; keeps the selection-tier line of the sphere
+    crop."""
 
-    def __init__(self, torch, stream, launches):
+    def __init__(self, torch, stream, launches, stages_done):
         self.torch, self.stream, self.launches = torch, stream, launches
+        self.stages_done = stages_done
         self.last, self.prev = time.perf_counter(), dict(launches)
         self.seconds, self.stage_launches, self.notes = {}, {}, []
 
     def write(self, text):
-        for m in re.finditer(r"=== (\S+): done ===", text):
+        for stage in self.stages_done(text):
             self.torch.cuda.synchronize()
             now = time.perf_counter()
-            stage = m.group(1)
             self.seconds[stage] = now - self.last
             self.stage_launches[stage] = {k: v - self.prev[k] for k, v in self.launches.items()}
             self.last, self.prev = now, dict(self.launches)
@@ -962,7 +963,7 @@ def pipeline_phase(torch, layout, cfg):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda_core.reset_launch_counts()
-        clock = StageClock(torch, sys.stdout, cuda_core.launches)
+        clock = StageClock(torch, sys.stdout, cuda_core.launches, run_pipeline.stages_done)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(clock):
             run_pipeline.main(["--data_path", data, "--iters1", str(i1), "--iters2", str(i2),

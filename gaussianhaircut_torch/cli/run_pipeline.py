@@ -21,8 +21,21 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
+
+_DONE = ("=== ", ": done ===")      # the line around a finished stage's name
+
+
+def done_line(stage: str) -> str:
+    """The line printed when ``stage`` has finished."""
+    return f"{_DONE[0]}{stage}{_DONE[1]}"
+
+
+def stages_done(text: str) -> list[str]:
+    """The stages whose ``done_line`` is in ``text``, in order."""
+    return re.findall(re.escape(_DONE[0]) + r"(\S+)" + re.escape(_DONE[1]), text)
 
 
 def _have(path: str) -> bool:
@@ -90,7 +103,7 @@ def main(argv=None):
     flame_dir = os.path.join(data, "flame_fitting", args.exp_name)
 
     def done(stage):
-        print(f"=== {stage}: done ===", flush=True)
+        print(done_line(stage), flush=True)
         if args.stop_after == stage:
             sys.exit(0)
 

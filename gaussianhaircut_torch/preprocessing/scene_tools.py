@@ -139,22 +139,24 @@ def colmap_to_h3ds(scene_path: str, images_dir: str = "images_4",
 
 # ------------------------------------------------------------------ SDF ----
 
+CHUNK_TERMS = 1 << 24     # point-face terms per chunk of the winding number
+
+
 @torch.no_grad()
-def winding_numbers(points, mesh: mesh_util.Mesh, device=None,
-                    chunk_terms: int = 1 << 24) -> torch.Tensor:
+def winding_numbers(points, mesh: mesh_util.Mesh, device=None) -> torch.Tensor:
     """Generalized winding number of ``points`` [N, 3] (numpy or torch)
     with respect to the triangles of ``mesh``, in float64 on ``device``
     (CUDA by default): the sum over faces of the solid angle
     2 atan2(a . (b x c), |a||b||c| + (a.b)|c| + (b.c)|a| + (a.c)|b|), over
     4 pi (Van Oosterom and Strackee).  The point-face terms go in chunks of
-    about ``chunk_terms`` (~150 bytes each at the peak)."""
+    about ``CHUNK_TERMS`` (~150 bytes each at the peak)."""
     device = resolve_device(device)
     tri = torch.as_tensor(np.asarray(mesh.verts, np.float64)[np.asarray(mesh.faces)],
                           device=device)                                   # [F, 3, 3]
     pts = torch.as_tensor(points).to(device=device, dtype=torch.float64)
     n_faces = tri.shape[0]
     corner = [[tri[None, :, v, i] for i in range(3)] for v in range(3)]   # [1, F] each
-    step = max(1, chunk_terms // max(n_faces, 1))
+    step = max(1, CHUNK_TERMS // max(n_faces, 1))
     wn = torch.empty(pts.shape[0], dtype=torch.float64, device=device)
     for s in range(0, pts.shape[0], step):
         p = pts[s:s + step, :, None]                                       # [n, 3, 1]
@@ -168,13 +170,12 @@ def winding_numbers(points, mesh: mesh_util.Mesh, device=None,
     return wn
 
 
-def mesh_sdf_sign(points, mesh: mesh_util.Mesh, device=None,
-                  chunk_terms: int = 1 << 24) -> np.ndarray:
+def mesh_sdf_sign(points, mesh: mesh_util.Mesh, device=None) -> np.ndarray:
     """True where a point is INSIDE the (closed) mesh: winding number
     > 0.5, robust to small gaps (the pysdf-equivalent that
     filter_flame_intersections.py:115-118 needs).  float64 as the JAX
     package's numpy, so the decision is the same away from the surface."""
-    return (winding_numbers(points, mesh, device, chunk_terms) > 0.5).cpu().numpy()
+    return (winding_numbers(points, mesh, device) > 0.5).cpu().numpy()
 
 
 def icosphere(subdiv: int = 0) -> np.ndarray:

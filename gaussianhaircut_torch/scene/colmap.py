@@ -230,16 +230,14 @@ def write_images_text(path: str, imgs: dict[int, ColmapImage]) -> None:
             f.write(f"{im.id} {q} {t} {im.camera_id} {im.name}\n\n")
 
 
-def write_points3d_text(path: str, xyz: np.ndarray, rgb: np.ndarray,
-                        err: np.ndarray | None = None) -> None:
-    """points3D.txt with empty tracks (``read_points3d_text`` reads it)."""
-    err = np.zeros(len(xyz)) if err is None else err
+def write_points3d_text(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """points3D.txt with zero errors and empty tracks (``read_points3d_text``
+    reads it)."""
     with open(path, "w") as f:
         f.write("# 3D point list: POINT3D_ID, X, Y, Z, R, G, B, ERROR, TRACK[]\n")
-        f.writelines(f"{i + 1} {p[0]!r} {p[1]!r} {p[2]!r} {c[0]} {c[1]} {c[2]} {e!r}\n"
-                     for i, (p, c, e) in enumerate(zip(np.asarray(xyz, np.float64).tolist(),
-                                                       np.asarray(rgb, np.uint8).tolist(),
-                                                       np.asarray(err, np.float64).tolist())))
+        f.writelines(f"{i + 1} {p[0]!r} {p[1]!r} {p[2]!r} {c[0]} {c[1]} {c[2]} 0.0\n"
+                     for i, (p, c) in enumerate(zip(np.asarray(xyz, np.float64).tolist(),
+                                                    np.asarray(rgb, np.uint8).tolist())))
 
 
 def write_cameras_binary(path: str, cams: dict[int, ColmapCamera]) -> None:

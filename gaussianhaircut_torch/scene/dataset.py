@@ -119,32 +119,24 @@ def _resample_coeffs(in_size: int, out_size: int, resample: str = "bicubic"):
     return xmin, kk
 
 
-def _resample_matrix(in_size: int, out_size: int, resample: str) -> np.ndarray:
-    """The pass as a dense [out_size, in_size] float64 matrix of PIL's
-    integer coefficients."""
-    xmin, kk = _resample_coeffs(in_size, out_size, resample)
-    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :], in_size - 1)
-    m = np.zeros((out_size, in_size), np.float64)
-    np.add.at(m, (np.repeat(np.arange(out_size), kk.shape[1]), idx.ravel()),
-              kk.ravel().astype(np.float64))
-    return m
-
-
 def _resample_axis(img: np.ndarray, out_size: int, axis: int,
                    resample: str = "bicubic", device="cpu") -> np.ndarray:
     """One pass of PIL's 8-bit resample along ``axis`` of [H, W, C] uint8:
-    integer sums of the fixed-point coefficients, rounded and clipped.  The
-    sums are one float64 matrix product on ``device``: every product and
-    partial sum is an integer below 2^53, so it is exact in any order of
-    summation."""
-    m = torch.as_tensor(_resample_matrix(img.shape[axis], out_size, resample), device=device)
-    src = np.moveaxis(img, axis, 0)                         # [in, ..., C]
-    flat = torch.as_tensor(src.reshape(src.shape[0], -1), device=device).to(torch.float64)
-    ss = (m @ flat).cpu().numpy().reshape((out_size,) + src.shape[1:])
-    ss = ss + (1 << (_PRECISION_BITS - 1))
-    out = np.where(ss <= 0, 0, np.where(ss >= (1 << _PRECISION_BITS << 8), 255,
-                                        np.floor(ss / (1 << _PRECISION_BITS))))
-    return np.moveaxis(out.astype(np.uint8), 0, axis)
+    integer sums of the fixed-point coefficients over each output's window
+    of taps, in int64 on ``device``, rounded and clipped."""
+    xmin, kk = _resample_coeffs(img.shape[axis], out_size, resample)
+    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :],
+                     img.shape[axis] - 1)                    # [out, ksize]
+    src = torch.as_tensor(np.moveaxis(img, axis, 0).copy(), device=device).to(torch.int64)
+    idx = torch.as_tensor(idx, device=device)
+    kk = torch.as_tensor(kk, device=device).reshape(kk.shape + (1,) * (src.ndim - 1))
+    ss = torch.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                    dtype=torch.int64, device=device)
+    for i in range(kk.shape[1]):
+        ss += src[idx[:, i]] * kk[:, i]
+    out = torch.where(ss <= 0, 0, torch.where(ss >= (1 << _PRECISION_BITS << 8), 255,
+                                              ss >> _PRECISION_BITS))
+    return np.moveaxis(out.to(torch.uint8).cpu().numpy(), 0, axis)
 
 
 def _resize_uint8(img: np.ndarray, resolution: tuple[int, int],

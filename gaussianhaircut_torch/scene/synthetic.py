@@ -18,16 +18,14 @@ from gaussianhaircut_torch.utils import mesh as mesh_util
 from gaussianhaircut_torch.utils.image import save_image, write_png
 
 
-def ring_cameras(n_views: int = 4, width: int = 960, height: int = 544,
-                 radius: float = 2.5, height_offset: float = 0.3,
-                 fov_deg: float = 50.0) -> list:
+def ring_cameras(n_views: int = 4, width: int = 960, height: int = 544) -> list:
     """``n_views`` cameras evenly on a horizontal ring around the origin,
     looking at it, without ground truth."""
     cams = []
-    fov = math.radians(fov_deg)
+    fov = math.radians(50)
     for i in range(n_views):
         a = 2 * math.pi * i / n_views
-        center = np.array([radius * math.sin(a), height_offset, radius * math.cos(a)])
+        center = np.array([2.5 * math.sin(a), 0.3, 2.5 * math.cos(a)])
         fwd = -center / np.linalg.norm(center)
         right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
         right /= np.linalg.norm(right)
@@ -124,26 +122,26 @@ def sphere_mesh(center=(0.0, 0.05, 0.0), radius: float = 0.1, n_lat: int = 70,
     return mesh_util.Mesh(verts, faces, None, None)
 
 
-def cap_mesh(mesh: mesh_util.Mesh, center, min_cos: float = 0.5) -> mesh_util.Mesh:
+def cap_mesh(mesh: mesh_util.Mesh, center) -> mesh_util.Mesh:
     """The faces of ``mesh`` whose centroid direction from ``center`` is
-    within arccos(``min_cos``) of +y (the scalp of ``sphere_mesh``), with
-    the vertices they use."""
+    within 60 degrees of +y (the scalp of ``sphere_mesh``), with the
+    vertices they use."""
     c = mesh.verts[mesh.faces].mean(axis=1) - np.asarray(center)
-    sel = mesh.faces[c[:, 1] / np.linalg.norm(c, axis=1) >= min_cos]
+    sel = mesh.faces[c[:, 1] / np.linalg.norm(c, axis=1) >= 0.5]
     used, inv = np.unique(sel, return_inverse=True)
     return mesh_util.Mesh(mesh.verts[used], inv.reshape(sel.shape), None, None)
 
 
 def write_pipeline_scene(root: str, cameras, images: np.ndarray, hair: np.ndarray,
                          body: np.ndarray, points: np.ndarray, colors: np.ndarray,
-                         head: mesh_util.Mesh | None = None, exp_name: str = "stage1") -> None:
+                         head: mesh_util.Mesh | None = None) -> None:
     """A scene directory as the pipeline starts from it (run.sh's layout
     after COLMAP and the mask networks): ``images/<i:06d>.png`` (uint8
     [V, H, W, 3]), ``masks/{hair,face,body}/`` (uint8 [V, H, W]; face = body
     - hair), ``sparse/0/`` and ``sparse_txt/`` as COLMAP text (one PINHOLE
     camera per view, principal point at the centre; the points with colours
-    in [0, 1]) and, with a ``head`` mesh, the FLAME fit's files
-    ``flame_fitting/<exp_name>/stage_3/mesh_final.obj`` and
+    in [0, 1]) and, with a ``head`` mesh, the FLAME fit's files for the
+    default experiment, ``flame_fitting/stage1/stage_3/mesh_final.obj`` and
     ``.../scalp_data/scalp.obj`` (its cap)."""
     names = [f"{i:06d}.png" for i in range(len(cameras))]
     for sub in ("images", "masks/hair", "masks/face", "masks/body"):
@@ -170,7 +168,7 @@ def write_pipeline_scene(root: str, cameras, images: np.ndarray, hair: np.ndarra
         colmap.write_images_text(os.path.join(d, "images.txt"), imgs)
         colmap.write_points3d_text(os.path.join(d, "points3D.txt"), points, rgb)
     if head is not None:
-        flame = os.path.join(root, "flame_fitting", exp_name)
+        flame = os.path.join(root, "flame_fitting", "stage1")
         os.makedirs(os.path.join(flame, "stage_3"), exist_ok=True)
         os.makedirs(os.path.join(flame, "scalp_data"), exist_ok=True)
         mesh_util.save_obj(os.path.join(flame, "stage_3", "mesh_final.obj"),
@@ -181,12 +179,12 @@ def write_pipeline_scene(root: str, cameras, images: np.ndarray, hair: np.ndarra
                            scalp.verts, scalp.faces)
 
 
-def toy_views(cameras, seed: int = 0):
+def toy_views(cameras):
     """Ground truth for a small pipeline scene without a renderer: per view
     a striped RGB image (a different stripe angle each view) with mild
     noise, a hair disc above the centre and a full body mask, as uint8
     ([V, H, W, 3], [V, H, W], [V, H, W])."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0)
     imgs, hair, body = [], [], []
     for i, c in enumerate(cameras):
         yy, xx = np.mgrid[0:c.height, 0:c.width]
@@ -201,11 +199,10 @@ def toy_views(cameras, seed: int = 0):
     return np.stack(imgs), np.stack(hair), np.stack(body)
 
 
-def toy_pipeline_scene(root: str, views: int = 3, res: int = 64, n_points: int = 400,
-                       seed: int = 0) -> None:
-    """A pipeline input scene small enough for the CPU: ``views`` square
-    views of ``res`` pixels on the bench ring (``toy_views`` ground truth),
-    the bench blob of ``n_points`` and a 10 x 8 sphere as the head."""
-    sc = bench_scene(n_points, res, res, views, seed)
-    write_pipeline_scene(root, sc.train_cameras, *toy_views(sc.train_cameras, seed),
+def toy_pipeline_scene(root: str) -> None:
+    """A pipeline input scene small enough for the CPU: three 64 x 64
+    views on the bench ring (``toy_views`` ground truth), a bench blob of
+    400 points and a 10 x 8 sphere as the head."""
+    sc = bench_scene(400, 64, 64, 3)
+    write_pipeline_scene(root, sc.train_cameras, *toy_views(sc.train_cameras),
                          sc.points, sc.colors, head=sphere_mesh(n_lat=8, n_lon=10))
