@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,cli,
-                                    strands,kernel_strands,pipeline]
+                                    strands,kernel_strands,pipeline,quality]
 
 Drives the port's main paths, the stage-1 trainer and its CLIs, the
 strand stack's CLIs and the whole reconstruction pipeline, on the bench
@@ -43,9 +43,9 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    largest tile and peak memory;
 9. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
                    the head and 990k strand Gaussians): the forward bit for
-                   bit, the backward row by row (two runs bit-identical) and
-                   the card's warp masks against their plain versions, with
-                   the kernels' times and bounds;
+                   bit, the backward row by row (two runs bit-identical),
+                   the probe and the card's warp masks against their plain
+                   versions, with the kernels' times and bounds;
 10. pipeline    -- the reconstruction pipeline from a scene directory:
                    8 views at 1920x1088 rendered from the strand scene of
                    ``strands`` (images, hair / face / body masks), COLMAP
@@ -63,7 +63,29 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    the CPU; per-stage seconds, orientation ms per view,
                    winding-number terms per second, LPIPS ms per pair,
                    render_strands s per view, export_strands s and peak
-                   memory.
+                   memory; then the scalp stage (``preprocessing.scalp.
+                   extract_scalp``) on that scene's sphere head, the masks
+                   the resize stage wrote and the stage-1 camera matrices:
+                   one view's pixel-to-face map equal to the plain numpy
+                   loop, a non-empty scalp cut from the head, a non-empty
+                   UV mask, and its seconds;
+11. quality     -- the quality harnesses on the card: the strand gate of
+                   tests/test_quality_gate_strands.py at its configuration
+                   (96 px, 10 + 3 views, 384 strands x 16, texture 64, 500
+                   stage-2 iterations, a 120-step distilled prior, 300
+                   stage-3 iterations with SDS) and floors (stage-2 test
+                   PSNR >= 22.0 dB, stage 3 >= 24.0 dB, stage-3 chamfer <=
+                   1.5x its init); ``tools.quality_run`` at
+                   QUALITY_r05.json's widths (teacher 50,000, 512 px, 20 + 4
+                   views) for 3,000 iterations, its test PSNR beside the JAX
+                   record's 3,000-iteration point; ``train.prior.
+                   distill_strand_prior`` at the full-width defaults (10,000 x
+                   100 teacher strands, diffusion input 32, UNet 128/256/512)
+                   for 100 steps, its loss falling on 8 fixed draws, ms per
+                   step, and the prior saved and loaded back through
+                   ``models.prior_io``; one forward
+                   launch per rendered view and one forward and backward per
+                   training step.
 
 Each phase prints one JSON line; then one line lists every kernel, then the
 card's name and power limit, and the last line is the device record.  Any
@@ -85,7 +107,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "cli",
-          "strands", "kernel_strands", "pipeline")
+          "strands", "kernel_strands", "pipeline", "quality")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -102,6 +124,13 @@ PIPE_WIDTH, PIPE_HEIGHT, PIPE_VIEWS, PIPE_ITERS, EXPORT_STRANDS = 1920, 1088, 8,
 # tolerances) and the winding number
 ORIENT_FILTERED_ATOL, ORIENT_RESP_REL, ORIENT_VAR_ATOL = 1e-5, 1e-4, 1e-4
 WINDING_ATOL, WINDING_MARGIN = 1e-9, 1e-6
+# the quality phase: the strand gate's floors (tests/test_quality_gate_strands.py:
+# 36-44), the stage-1 harness at QUALITY_r05.json's widths and the JAX
+# record's test PSNR at 3,000 iterations, the full-width distillation's steps
+STAGE2_PSNR_FLOOR, STAGE3_PSNR_FLOOR, CHAMFER_DRIFT_MAX = 22.0, 24.0, 1.5
+QR_TEACHER, QR_RES, QR_VIEWS, QR_TEST_VIEWS, QR_ITERS = 50_000, 512, 20, 4, 3000
+QR_JAX_TEST_PSNR_3000 = 10.6
+DISTILL_STEPS = 100
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -388,6 +417,15 @@ def main() -> int:
                 kernels[name]["launches_pipeline"] = res["launches"][name]
             emit(res)
         del layout
+
+    if "quality" in phases:
+        t0 = time.perf_counter()
+        res = quality_phase(torch, dev)
+        res["seconds"] = time.perf_counter() - t0
+        for name in ("raster_fwd", "raster_bwd"):
+            kernels[name]["launches_quality"] = {k: res[k]["launches"][name]
+                                                 for k in ("strand_gate", "quality_run")}
+        emit(res)
 
     complete = all(ph in phases for ph in PHASES)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -843,6 +881,19 @@ def kernel_strands_phase(torch, layout, cfg):
     bwd_ms = cuda_ms(lambda: cuda_core.raster_bwd(*bargs), REPS)
     fb_ms, fb_by = bound_ms(in_bytes + buf_bytes,
                             stats["kept"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_FWD)
+    # the probe on the same layout, held as the probe phase holds it
+    probe = cuda_core.raster_probe(*lay, WIDTH, HEIGHT, cfg)
+    t0 = time.perf_counter()
+    probe_plain = plain_core.raster_probe_plain(*lay, cfg)
+    torch.cuda.synchronize()
+    probe_plain_s = time.perf_counter() - t0
+    abs_sum = plain_core.raster_probe_plain(binned.payload.abs(), *lay[1:], cfg)[:, 0, 0]
+    probe_err = (probe - probe_plain).abs().amax(dim=(1, 2))
+    require(bool((probe_err <= 1e-5 * (abs_sum + 1.0)).all()),
+            f"strand probe: error beyond 1e-5 x (sum|row 0| + 1): {float(probe_err.max())}")
+    probe_ms = cuda_ms(lambda: cuda_core.raster_probe(*lay, WIDTH, HEIGHT, cfg), REPS)
+    pb_ms, pb_by = bound_ms(in_bytes + buf_bytes,
+                            used_chunks * (cfg.chunk + cfg.tile_pix * (cfg.chunk // 32 + 16)))
     bb_ms, bb_by = bound_ms(in_bytes + 2 * buf_bytes + used_chunks * C.GRAD_ROWS * cfg.chunk * 4,
                             stats["kept"] * OPS_VISIT + stats["contrib"] * OPS_BLEND_BWD)
     return {"phase": "kernel_strands", **layout_stats(binned, n_head),
@@ -855,6 +906,9 @@ def kernel_strands_phase(torch, layout, cfg):
                            "bound_by": fb_by, "bound_share": fb_ms / fwd_ms},
             "raster_bwd": {"ms": bwd_ms, "plain_s_once": plain_bwd_s, "bound_ms": bb_ms,
                            "bound_by": bb_by, "bound_share": bb_ms / bwd_ms},
+            "raster_probe": {"ms": probe_ms, "plain_s_once": probe_plain_s,
+                             "max_abs_err": float(probe_err.max()), "bound_ms": pb_ms,
+                             "bound_by": pb_by, "bound_share": pb_ms / probe_ms},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -1125,7 +1179,222 @@ def pipeline_phase(torch, layout, cfg):
         g = load_rgb(os.path.join(method, "gt", names[0]), dev)[None]
         out["lpips_ms_per_pair"] = cuda_ms(lambda: lp.distance(r, g), 5)
         out["lpips_kind"] = lp.kind
+        out["scalp"] = scalp_step(torch, data, os.path.join(root, "scalp_fit"), flame, i1, dev)
     return out
+
+
+def scalp_step(torch, data, fit, flame, iteration, dev):
+    """The scalp stage on the pipeline's scene: its sphere head (copied to
+    ``fit``, so that the scene's own scalp files stay), the masks the resize
+    stage wrote and the stage-1 camera matrices.  One view's pixel-to-face
+    map is held against the plain numpy loop."""
+    import pickle
+    import shutil
+    from gaussianhaircut_torch.preprocessing import scalp
+    from gaussianhaircut_torch.utils import mesh as mesh_util
+    from gaussianhaircut_torch.utils.image import read_png
+
+    shutil.copytree(flame, fit)
+    with open(os.path.join(data, "3d_gaussian_splatting", "stage1", "cameras",
+                           f"{iteration}_matrices.pkl"), "rb") as f:
+        matrices = pickle.load(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scalp.extract_scalp(fit, data, matrices, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    head = mesh_util.load_obj(os.path.join(fit, "stage_3", "mesh_final.obj"))
+    name, full = next(iter(matrices.items()))
+    h, w = read_png(os.path.join(data, "masks_2", "hair", f"{name}.png")).shape[:2]
+    pix, depth = scalp.view_pixels(head.verts, full, w, h)
+    card = scalp.rasterize_pix_to_face(pix, depth, head.faces, w, h, dev)
+    plain = scalp.rasterize_pix_to_face_plain(pix, depth, head.faces, w, h)
+    require(np.array_equal(card, plain), f"scalp: the card's pixel-to-face map differs "
+            f"from the plain loop at {int((card != plain).sum())} pixels")
+    out_dir = os.path.join(fit, "scalp_data")
+    with open(os.path.join(out_dir, "cut_scalp_verts.pickle"), "rb") as f:
+        used = np.asarray(pickle.load(f), np.int64)
+    cut = mesh_util.load_obj(os.path.join(out_dir, "scalp.obj"))
+    mask = read_png(os.path.join(out_dir, "dif_mask.png"))
+    require(len(used) > 0 and used.max() < len(head.verts) and len(np.unique(used)) == len(used)
+            and np.array_equal(cut.verts, head.verts[used]) and len(cut.faces) > 0
+            and cut.uvs is not None, f"scalp: a cut of {len(used)} vertices, "
+            f"{len(cut.faces)} faces is not a non-empty part of the head")
+    require(mask.shape == (256, 256) and (mask > 0).any(), "scalp: empty dif_mask")
+    return {"s": seconds, "views": len(matrices), "head_faces": len(head.faces),
+            "scalp_verts": len(used), "scalp_faces": len(cut.faces),
+            "dif_mask_share": float((mask > 0).mean()), "p2f_view": name,
+            "p2f_covered": int((card >= 0).sum()), "p2f_equal_plain": True}
+
+
+def quality_phase(torch, dev):
+    """The strand gate, the stage-1 harness at QUALITY_r05.json's widths and
+    the full-width distillation: the checks of the module docstring's item
+    11."""
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+
+    def launched(fn):
+        torch.cuda.synchronize()
+        cuda_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(cuda_core.launches), time.perf_counter() - t0
+
+    out = {"phase": "quality"}
+    gate, launches, secs = launched(lambda: strand_gate(torch, dev))
+    expect = gate.pop("expected_launches")
+    require(launches["raster_fwd"] == expect[0] and launches["raster_bwd"] == expect[1],
+            f"strand gate: launched {launches}, expected {expect}")
+    out["strand_gate"] = dict(gate, launches=launches, s=secs)
+
+    from gaussianhaircut_torch.tools import quality_run
+    args = quality_run.parse_args([
+        "--iters", str(QR_ITERS), "--teacher_p", str(QR_TEACHER), "--res", str(QR_RES),
+        "--views", str(QR_VIEWS), "--test_views", str(QR_TEST_VIEWS),
+        "--eval_every", str(QR_ITERS), "--device", dev.type])
+    rec, launches, secs = launched(lambda: quality_run.run(args))
+    # renders: the ground truth, the held-out curve (the test views and five
+    # train views), the final evaluation and the LPIPS views
+    renders = (QR_VIEWS + QR_TEST_VIEWS) + (QR_TEST_VIEWS + 5) + (QR_VIEWS + QR_TEST_VIEWS) \
+        + QR_TEST_VIEWS
+    require(launches["raster_fwd"] == QR_ITERS + renders and launches["raster_bwd"] == QR_ITERS,
+            f"quality_run: launched {launches}, expected {QR_ITERS} steps + {renders} renders")
+    require(all(np.isfinite(rec[k]) for k in ("train_psnr", "test_psnr")),
+            f"quality_run: {rec}")
+    out["quality_run"] = dict(rec, launches=launches, s=secs,
+                              jax_test_psnr_at_3000=QR_JAX_TEST_PSNR_3000)
+    out["distill_full_width"] = distill_full_width(torch, dev)
+    return out
+
+
+def strand_gate(torch, dev):
+    """tests/test_quality_gate_strands.py on the card, through the port's
+    harness pieces (``tools.quality_strands``) and trainers."""
+    from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from gaussianhaircut_torch.models.textured_strands import (
+        TexturedStrandsConfig, sample_roots, synthetic_scalp_pool)
+    from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
+    from gaussianhaircut_torch.tools import quality_strands as qs
+    from gaussianhaircut_torch.train import stage2, stage3
+    from gaussianhaircut_torch.train.prior import distill_strand_prior
+
+    res, n_views, n_test, iters2, iters3, prior_steps = 96, 10, 3, 500, 300, 120
+    rng = np.random.default_rng(0)
+    pool = synthetic_scalp_pool(4000)
+    radius_scale = torch.tensor(2e-3, device=dev)
+    scfg = TexturedStrandsConfig(num_strands=384, texture_size=64, strand_length=16,
+                                 sh_degree=1, pool_size=4000, use_diffusion=False)
+    t_pts, t_rgb, _, _ = qs.teacher_strands(pool, 512, 16, rng, dev)
+    head_model = qs.make_head_model(rng, capacity=1024, n=512, device=dev)
+    head = stage2.make_head_fields(head_model)
+    raster_cfg = RasterConfig(tile_w=16, tile_h=16, chunk=64)
+    cams = qs.make_cameras(n_views + n_test, res, res)
+    qs.attach_gt(cams, stage2.concat_fields(head, qs.teacher_fields(
+        t_pts, t_rgb, radius_scale, scfg.sh_degree)), scfg.sh_degree, raster_cfg)
+
+    class Scene:
+        train_cameras = cams[:n_views]
+        test_cameras = cams[n_views:]
+
+    model_cfg = ModelConfig()
+    pipe_cfg = PipelineConfig(tile=16)
+    scene_scale = float(radius_scale) / model_cfg.strand_scale
+    t0 = time.perf_counter()
+    hair_state = stage2.train(
+        model_cfg, OptimizationConfig(iterations=iters2, lambda_dmask=0.1, lambda_dorient=0.1,
+                                      train_orient_conf=False),
+        scfg, pipe_cfg, Scene, head_model, pool, scene_scale, device=dev)
+    torch.cuda.synchronize()
+    s2_s = time.perf_counter() - t0
+    pool_d = pool.to(dev)
+    with torch.no_grad():
+        hair2, _ = stage2.hair_fields_from_strands(
+            hair_state.params, pool_d, scfg,
+            sample_roots(pool_d, scfg.num_strands, torch.Generator(device=dev).manual_seed(42)),
+            radius_scale)
+    psnr2 = qs.evaluate(hair2, head, Scene.test_cameras, "s", 1, raster_cfg)["s_psnr"]
+
+    t_flat = t_pts.reshape(-1, 3)
+    roots = sample_roots(pool, 384, torch.Generator().manual_seed(1))
+    params0, static0 = stage3.create_from_stage2(hair_state.params, pool_d, scfg, roots.to(dev))
+    pts0 = stage3.curves_points(params0, static0)
+    chamfer0 = qs.strand_chamfer(pts0, t_flat)
+    prior3, pinfo = distill_strand_prior(pts0, static0.uvs, static0.local2world, scfg,
+                                         steps=prior_steps, seed=2000, device=dev)
+    t0 = time.perf_counter()
+    curves = stage3.train(
+        model_cfg, OptimizationConfig(iterations=iters3, lambda_dmask=0.1, lambda_dorient=0.1,
+                                      lambda_dssim=0.2, lambda_dsds=0.01,
+                                      train_orient_conf=False),
+        scfg, pipe_cfg, Scene, head_model, hair_state.params, pool, scene_scale,
+        num_strands=384, checkpoint_iterations=(), prior=prior3, use_sds=True, device=dev)
+    torch.cuda.synchronize()
+    s3_s = time.perf_counter() - t0
+    with torch.no_grad():
+        hair3 = stage3.curves_fields(curves.params, curves.static, scfg, radius_scale)
+    psnr3 = qs.evaluate(hair3, head, Scene.test_cameras, "s", 1, raster_cfg)["s_psnr"]
+    chamfer3 = qs.strand_chamfer(stage3.curves_points(curves.params, curves.static), t_flat)
+    out = {"stage2_test_psnr": psnr2, "stage3_test_psnr": psnr3, "chamfer_init": chamfer0,
+           "chamfer_stage3": chamfer3, "chamfer_drift": chamfer3 / chamfer0, **pinfo,
+           "floors": [STAGE2_PSNR_FLOOR, STAGE3_PSNR_FLOOR, CHAMFER_DRIFT_MAX],
+           "stage2_it_per_s": iters2 / s2_s, "stage3_it_per_s": iters3 / s3_s,
+           "expected_launches": (n_views + n_test + iters2 + n_test + iters3 + n_test,
+                                 iters2 + iters3)}
+    require(psnr2 >= STAGE2_PSNR_FLOOR and psnr3 >= STAGE3_PSNR_FLOOR
+            and chamfer3 <= CHAMFER_DRIFT_MAX * chamfer0, f"strand gate failed: {out}")
+    return out
+
+
+def distill_full_width(torch, dev):
+    """``distill_strand_prior`` at the full-width defaults (the UNet at
+    128/256/512 on the 32x32 grid) for DISTILL_STEPS steps on the strand
+    harness's teacher at 10,000 x 100; the loss must fall on a fixed
+    yardstick (``prior_loss`` over 8 seeded draws, before and after: the
+    per-step losses swing with each step's sigma); the prior goes through
+    ``prior_io`` and back."""
+    import tempfile
+    from gaussianhaircut_torch.models import prior_io
+    from gaussianhaircut_torch.models.diffusion import Denoiser
+    from gaussianhaircut_torch.models.textured_strands import (
+        TexturedStrandsConfig, synthetic_scalp_pool)
+    from gaussianhaircut_torch.tools.quality_strands import teacher_strands
+    from gaussianhaircut_torch.train import prior as P
+
+    scfg = TexturedStrandsConfig(num_strands=N_STRANDS, strand_length=STRAND_LEN,
+                                 texture_size=TEXTURE, diffusion_input=DIFF_INPUT)
+    pts, _, uvs, l2w = teacher_strands(synthetic_scalp_pool(scfg.pool_size), N_STRANDS,
+                                       STRAND_LEN, np.random.default_rng(SEED), dev)
+    cfg = P.DiffusionConfig(input_channels=P.GEOMETRY_DIM, input_size=DIFF_INPUT)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    yardstick = [P.draw_prior(N_STRANDS, 1000, cfg, gen) for _ in range(8)]
+    fresh = {"encoder": P.fixed_encoder(STRAND_LEN).to(dev),
+             "denoiser": Denoiser(cfg).init_weights(torch.Generator().manual_seed(SEED)).to(dev)}
+    before = P.prior_loss(fresh, pts, uvs, l2w, scfg, yardstick, dev)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prior, info = P.distill_strand_prior(pts, uvs, l2w, scfg, steps=DISTILL_STEPS, seed=SEED,
+                                         denoiser=fresh["denoiser"], device=dev,
+                                         progress_callback=lambda i, lv: losses.append(lv))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DISTILL_STEPS
+    after = P.prior_loss(prior, pts, uvs, l2w, scfg, yardstick, dev)
+    require(np.isfinite(losses).all() and after < before,
+            f"distillation: the loss did not fall on the yardstick ({before} -> {after})")
+    with tempfile.TemporaryDirectory(prefix="ghprior_") as d:
+        path = os.path.join(d, "prior.npz")
+        prior_io.save_prior(path, prior)
+        back = prior_io.load_prior(path, STRAND_LEN, DIFF_INPUT, dev)
+        require(set(back) == {"encoder", "denoiser"} and all(
+            torch.equal(a, b) for k in back for a, b in zip(back[k].parameters(),
+                                                            prior[k].parameters())),
+                "distillation: the prior does not load back through prior_io")
+        mb = os.path.getsize(path) / 1e6
+    return {"strands": N_STRANDS, "strand_length": STRAND_LEN, "diffusion_input": DIFF_INPUT,
+            "steps": DISTILL_STEPS, "ms_per_step": ms, "yardstick_loss_before": before,
+            "yardstick_loss_after": after, "loss_first20_mean": float(np.mean(losses[:20])),
+            "loss_last20_mean": float(np.mean(losses[-20:])), **info, "prior_mb": mb}
 
 
 if __name__ == "__main__":

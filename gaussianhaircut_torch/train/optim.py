@@ -34,17 +34,17 @@ def adam_init(params) -> AdamState:
 
 def adam_update(grads, state: AdamState, lrs, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-15):
-    """Returns (updates, new_state).  ``lrs`` is a record of Python floats
-    matching ``grads``; an lr of 0 freezes that leaf.  Update:
+    """Returns (updates, new_state).  ``lrs`` is a record (or dict) of
+    Python floats matching ``grads``; an lr of 0 freezes that leaf.  Update:
     -lr * m_hat / (sqrt(v_hat) + eps)."""
     count = state.count + 1
     cnt = count.to(torch.float32)
     c1 = 1 - torch.pow(b1, cnt)
     c2 = 1 - torch.pow(b2, cnt)
-    mu = state.mu.map(lambda m, g: b1 * m + (1 - b1) * g, grads)
-    nu = state.nu.map(lambda v, g: b2 * v + (1 - b2) * g * g, grads)
-    updates = lrs.map(lambda lr, m, v: -lr * (m / c1) / (torch.sqrt(v / c2) + eps),
-                      mu, nu)
+    mu = _map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+    nu = _map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
+    updates = _map(lambda lr, m, v: -lr * (m / c1) / (torch.sqrt(v / c2) + eps),
+                   lrs, mu, nu)
     return updates, AdamState(mu, nu, count)
 
 

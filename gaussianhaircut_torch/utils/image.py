@@ -6,7 +6,14 @@ image_utils.py:22-42).
 The PNG codec covers what the pipeline reads and writes: 8-bit gray, gray +
 alpha, RGB and RGBA, non-interlaced.  The reader undoes all five row filters
 and returns the array PIL's ``np.asarray(Image.open(path))`` gives: [H, W]
-for gray, [H, W, C] otherwise.  The writer stores every row unfiltered.
+for gray, [H, W, C] otherwise.  The writer stores every row unfiltered, or,
+with ``like_pil``, writes the bytes PIL's ``Image.save`` writes: each row
+takes the filter of least summed |signed byte| among None, Up, Sub and
+Paeth (in that order, the first on ties; never Average), deflated at level 6
+with memLevel 9 and the Z_FILTERED strategy, in IDAT chunks of 65536 bytes.
+That costs about what PIL costs, and Paeth rows make ``read_png`` slow on a
+large image, so only files that must equal the JAX package's byte for byte
+(the scalp's ``dif_mask.png``) are written so.
 """
 from __future__ import annotations
 
@@ -121,9 +128,32 @@ def read_png(path: str) -> np.ndarray:
     return img[..., 0] if ch == 1 else img
 
 
-def write_png(path: str, img: np.ndarray) -> None:
+def _filter_rows(x: np.ndarray, bpp: int) -> np.ndarray:
+    """[h, n] uint8 rows -> [h, 1 + n] filtered rows, each with the filter
+    PIL's encoder picks (least summed |signed byte|; None, Up, Sub, Paeth
+    in that order, the first on ties).  Differences wrap in uint8."""
+    h = x.shape[0]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    upleft = np.zeros_like(x)
+    upleft[1:, bpp:] = x[:-1, :-bpp]
+    # Paeth: the neighbour nearest to left + up - upleft
+    a, b, c = (v.astype(np.int16) for v in (left, up, upleft))
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    cands = np.stack([x, x - up, x - left, x - pred])
+    cost = np.minimum(cands, 0 - cands).sum(axis=2, dtype=np.int64)
+    best = np.argmin(cost, axis=0)
+    ftype = np.array([0, 2, 1, 4], np.uint8)[best]
+    return np.concatenate([ftype[:, None], cands[best, np.arange(h)]], axis=1)
+
+
+def write_png(path: str, img: np.ndarray, like_pil: bool = False) -> None:
     """uint8 [H, W] or [H, W, C] (C = 1, 2, 3, 4) -> 8-bit PNG, rows
-    unfiltered."""
+    unfiltered; with ``like_pil``, byte for byte what PIL's
+    ``Image.fromarray(img).save(path)`` writes."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png: expected uint8, got {img.dtype}")
@@ -132,8 +162,14 @@ def write_png(path: str, img: np.ndarray) -> None:
     h, w, ch = img.shape
     if ch not in _COLOR_TYPE:
         raise ValueError(f"write_png: {ch} channels")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(img).reshape(h, w * ch)], axis=1)
+    pixels = np.ascontiguousarray(img).reshape(h, w * ch)
+    if like_pil:
+        z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+        data = z.compress(_filter_rows(pixels, ch).tobytes()) + z.flush()
+        idat = [data[i:i + 65536] for i in range(0, len(data), 65536)]
+    else:
+        rows = np.concatenate([np.zeros((h, 1), np.uint8), pixels], axis=1)
+        idat = [zlib.compress(rows.tobytes(), 6)]
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
@@ -143,7 +179,7 @@ def write_png(path: str, img: np.ndarray) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + b"".join(chunk(b"IDAT", part) for part in idat)
                 + chunk(b"IEND", b""))
 
 

@@ -42,13 +42,23 @@ def load_obj(path: str) -> Mesh:
                 np.asarray(face_uvs, np.int64) if face_uvs else None)
 
 
-def save_obj(path: str, verts: np.ndarray, faces: np.ndarray) -> None:
-    """An OBJ without UVs that ``load_obj`` reads back (1-based indices)."""
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray,
+             uvs: np.ndarray | None = None, face_uvs: np.ndarray | None = None) -> None:
+    """An OBJ that ``load_obj`` reads back (1-based indices), with ``vt``
+    rows and ``v/vt`` faces when ``uvs`` and ``face_uvs`` are given (the
+    scalp's ``scalp.obj``)."""
     with open(path, "w") as f:
         for v in verts:
             f.write(f"v {v[0]} {v[1]} {v[2]}\n")
-        for face in faces:
-            f.write(f"f {face[0]+1} {face[1]+1} {face[2]+1}\n")
+        if uvs is not None:
+            for t in uvs:
+                f.write(f"vt {t[0]} {t[1]}\n")
+        for i, face in enumerate(faces):
+            if uvs is not None and face_uvs is not None:
+                t = face_uvs[i]
+                f.write(f"f {face[0]+1}/{t[0]+1} {face[1]+1}/{t[1]+1} {face[2]+1}/{t[2]+1}\n")
+            else:
+                f.write(f"f {face[0]+1} {face[1]+1} {face[2]+1}\n")
 
 
 def face_areas(mesh: Mesh) -> np.ndarray:

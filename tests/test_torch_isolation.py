@@ -2,9 +2,10 @@
 ``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``, nor a
 package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV);
 a CPU step, the stage-1 CLIs, the strand CLIs, the orchestrator on a toy
-scene and the metrics CLI run with all of those unimportable; the entry
-points never pick the CPU on their own; and the kernel wrappers keep CUDA
-tensors away from the plain versions."""
+scene, the metrics CLI, the scalp stage, the face glue, the synthetic-scene
+layout and both quality harnesses run with all of those unimportable; the
+entry points never pick the CPU on their own; and the kernel wrappers keep
+CUDA tensors away from the plain versions."""
 import ast
 import os
 import subprocess
@@ -138,6 +139,44 @@ _SCRIPT = textwrap.dedent("""
     shutil.copytree(os.path.join(data, "images_2"), os.path.join(ev, "gt"))
     res = metrics.main(["-m", os.path.join(root, "eval"), "--device", "cpu"])
     assert math.isfinite(res[os.path.join(root, "eval")]["ours"]["PSNR"]), res
+
+    # the scalp stage on the toy scene's head, masks and stage-1 cameras
+    import pickle
+    from gaussianhaircut_torch.preprocessing import scalp
+    flame = os.path.join(data, "flame_fitting", "stage1")
+    with open(os.path.join(data, "3d_gaussian_splatting", "stage1", "cameras",
+                           "2_matrices.pkl"), "rb") as f:
+        scalp.extract_scalp(flame, data, pickle.load(f), device="cpu")
+    assert sorted(os.listdir(os.path.join(flame, "scalp_data"))) == [
+        "cut_scalp_verts.pickle", "dif_mask.png", "scalp.obj"]
+
+    # the new entry points as `python -m` would run them: the face glue,
+    # the synthetic-scene layout and both quality harnesses at a tiny size
+    import runpy
+    from gaussianhaircut_torch.train import prior
+    prior.DiffusionConfig = stage2.DiffusionConfig
+    def run_module(name, *argv):
+        sys.argv = [name, *argv]
+        runpy.run_module(name, run_name="__main__", alter_sys=True)
+    run_module("gaussianhaircut_torch.cli.calc_face_alignment", "--data_path", data)
+    assert os.path.exists(os.path.join(data, "face_alignment", "lmks_2d.pkl"))
+    os.makedirs(os.path.join(root, "pixie", "0"))
+    with open(os.path.join(root, "pixie", "0", "0_param.pkl"), "wb") as f:
+        pickle.dump({"shape": np.zeros(3)}, f)
+    run_module("gaussianhaircut_torch.cli.merge_smplx_predictions", "--data_path", root)
+    assert os.path.exists(os.path.join(root, "initialization_pixie"))
+    run_module("gaussianhaircut_torch.preprocessing.synthetic_scene", "--src", data,
+               "--dst", os.path.join(root, "synthetic"))
+    assert os.path.isdir(os.path.join(root, "synthetic", "images_2"))
+    run_module("gaussianhaircut_torch.tools.quality_run", "--iters", "2", "--teacher_p", "100",
+               "--res", "32", "--views", "1", "--test_views", "1", "--device", "cpu",
+               "--out", os.path.join(root, "q1.json"))
+    run_module("gaussianhaircut_torch.tools.quality_strands", "--iters2", "1", "--iters3", "1",
+               "--res", "32", "--views", "1", "--test_views", "1", "--teacher_strands", "12",
+               "--num_strands", "8", "--strand_length", "4", "--pool_size", "200",
+               "--texture_size", "32", "--use_sds_stage3", "--prior_steps", "1",
+               "--device", "cpu", "--out", os.path.join(root, "q2.json"))
+    assert all(os.path.exists(os.path.join(root, q)) for q in ("q1.json", "q2.json"))
     assert all(n == 0 for n in cuda_core.launches.values()), cuda_core.launches
 
     # with no device and no CUDA, train() raises instead of using the CPU
@@ -197,9 +236,10 @@ def test_kernel_checks_reject_cpu_tensors():
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """No device given means CUDA: without it resolve_device, the CLIs
-    (``convert`` aside: it only runs COLMAP), the orientation maps, the
-    winding number and the resize raise (before reading any file) instead
-    of running on the CPU."""
+    (``convert`` aside: it only runs COLMAP; the face glue and the
+    synthetic-scene layout use no device), the orientation maps, the winding
+    number, the resize, the scalp stage, the prior and the quality harnesses
+    raise (before reading any file) instead of running on the CPU."""
     from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
     from gaussianhaircut_torch.device import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -219,7 +259,22 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     strand = ["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "model"),
               "--model_path_hair", str(tmp_path / "hair")]
     missing = str(tmp_path / "missing")
+    from gaussianhaircut_torch.models.textured_strands import TexturedStrandsConfig
+    from gaussianhaircut_torch.preprocessing import scalp
+    from gaussianhaircut_torch.tools import quality_run, quality_strands
+    from gaussianhaircut_torch.train import prior
+    strands = np.zeros((4, 5, 3))
     for call in (lambda: orientation_maps.calc_orientation_map(np.zeros((8, 8, 3))),
+                 lambda: scalp.rasterize_pix_to_face(np.zeros((3, 2)), np.ones(3),
+                                                     np.array([[0, 1, 2]]), 4, 4),
+                 lambda: scalp.extract_scalp(missing, missing, {}),
+                 lambda: prior.distill_strand_prior(strands, np.zeros((4, 2)),
+                                                    np.tile(np.eye(3), (4, 1, 1)),
+                                                    TexturedStrandsConfig(), steps=1),
+                 lambda: prior.pretrain_strand_decoder(strands, np.tile(np.eye(3), (4, 1, 1)),
+                                                       TexturedStrandsConfig(), steps=1),
+                 lambda: quality_run.main(["--iters", "1"]),
+                 lambda: quality_strands.main(["--iters2", "1"]),
                  lambda: scene_tools.mesh_sdf_sign(np.zeros((2, 3)), sphere_mesh(n_lat=4,
                                                                                   n_lon=4)),
                  lambda: scene_tools.resize_images(missing),
