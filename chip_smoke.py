@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,cli,
-                                    strands,kernel_strands,pipeline,quality]
+    python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,viewer,
+                                    cli,video,strands,kernel_strands,pipeline,masks,quality]
 
-Drives the port's main paths, the stage-1 trainer and its CLIs, the
-strand stack's CLIs and the whole reconstruction pipeline, on the bench
+Drives the port's main paths, the stage-1 trainer and its CLIs, the live
+viewer, the video, the strand stack's CLIs, the whole reconstruction
+pipeline and the mask fallback, on the bench
 scene (seeded synthetic point cloud, 100k Gaussians, 960x544, SH degree 3,
 four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
 
@@ -23,13 +24,26 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    and two kernel runs bit for bit;
 6. train        -- the port's ``train()`` for 50 iterations with densify and
                    one opacity reset; launch counts must equal the steps;
-7. cli          -- the bench scene written to disk in the COLMAP layout,
+7. viewer       -- the SIBR live viewer (``render/network_gui``) during a
+                   20-iteration ``train()``: a loopback client sends one
+                   request per iteration, three of them 960x544 cameras
+                   (the last with keep_alive, which holds the trainer for
+                   one more request); every reply equals ``render()`` of
+                   its camera on the state it was rendered from, the
+                   training finishes, one forward launch per image and one
+                   forward and backward per step; round trip and reply ms;
+8. cli          -- the bench scene written to disk in the COLMAP layout,
                    ``cli.train_gaussians`` for 60 iterations (evaluation,
                    PLY, checkpoint and camera pickles), a resume from the
                    iteration-30 checkpoint to 40, and ``cli.render_gaussians``
                    on the result; launch counts must equal the steps plus
                    the renders;
-8. strands      -- the strand stack on the bench scene written to disk:
+9. video        -- ``cli.render_video`` on the cli phase's model for 24
+                   frames: exactly 24 forward launches, frame 0 equal to the
+                   plain forward's render of its camera (the tile buffer bit
+                   for bit, the PNG byte for byte), the AVI's index read
+                   back to the frames' PNG bytes; frames/s and peak memory;
+10. strands     -- the strand stack on the bench scene written to disk:
                    ``cli.train_gaussians`` for 20 iterations (the head PLY
                    and camera pickles), ``cli.train_latent_strands`` at the
                    full-width defaults (10,000 strands x 100 points, texture
@@ -41,12 +55,12 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    exported [10000, 100, 3] strands are finite; per stage
                    it/s, instances (the hair rows' share), chunks, the
                    largest tile and peak memory;
-9. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
+11. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
                    the head and 990k strand Gaussians): the forward bit for
                    bit, the backward row by row (two runs bit-identical),
                    the probe and the card's warp masks against their plain
                    versions, with the kernels' times and bounds;
-10. pipeline    -- the reconstruction pipeline from a scene directory:
+12. pipeline    -- the reconstruction pipeline from a scene directory:
                    8 views at 1920x1088 rendered from the strand scene of
                    ``strands`` (images, hair / face / body masks), COLMAP
                    text with the 100k points, a closed sphere head of
@@ -69,7 +83,11 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    one view's pixel-to-face map equal to the plain numpy
                    loop, a non-empty scalp cut from the head, a non-empty
                    UV mask, and its seconds;
-11. quality     -- the quality harnesses on the card: the strand gate of
+13. masks       -- ``cli.calc_masks`` (the GrabCut fallback) on two of that
+                   scene's raw 1920x1088 views: non-empty hair, face and
+                   body masks, hair and face nearly disjoint; seconds per
+                   view, split into the min cuts and the rest;
+14. quality     -- the quality harnesses on the card: the strand gate of
                    tests/test_quality_gate_strands.py at its configuration
                    (96 px, 10 + 3 views, 384 strands x 16, texture 64, 500
                    stage-2 iterations, a 120-step distilled prior, 300
@@ -106,8 +124,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "cli",
-          "strands", "kernel_strands", "pipeline", "quality")
+PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "viewer", "cli",
+          "video", "strands", "kernel_strands", "pipeline", "masks", "quality")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -131,6 +149,12 @@ STAGE2_PSNR_FLOOR, STAGE3_PSNR_FLOOR, CHAMFER_DRIFT_MAX = 22.0, 24.0, 1.5
 QR_TEACHER, QR_RES, QR_VIEWS, QR_TEST_VIEWS, QR_ITERS = 50_000, 512, 20, 4, 3000
 QR_JAX_TEST_PSNR_3000 = 10.6
 DISTILL_STEPS = 100
+# the viewing and masking entry points: render_video's frames, the viewer's
+# training iterations and the iterations whose poll gets a 960x544 request
+# (the last one with keep_alive), the pipeline views calc_masks runs on
+VIDEO_FRAMES = 24
+VIEWER_ITERS, VIEWER_ASKS = 20, (2, 10, 20)
+MASK_VIEWS = ("000000.png", "000004.png")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -258,6 +282,10 @@ def main() -> int:
             "kernel_strands holds the kernels at the layout the strands phase trains")
     require("pipeline" not in phases or "strands" in phases,
             "pipeline renders its scene from the layout the strands phase trains")
+    require("video" not in phases or "cli" in phases,
+            "video renders the model the cli phase trains")
+    require("masks" not in phases or "pipeline" in phases,
+            "masks runs on the views of the pipeline phase's scene")
 
     import torch
     if not torch.cuda.is_available():
@@ -393,8 +421,25 @@ def main() -> int:
     if "train" in phases:
         emit(train_phase(torch, scene, cfg, dev, kernels))
 
+    if "viewer" in phases:
+        t0 = time.perf_counter()
+        res = viewer_phase(torch, scene, dev)
+        res["seconds"] = time.perf_counter() - t0
+        for name in ("raster_fwd", "raster_bwd"):
+            kernels[name]["launches_viewer"] = res["launches"][name]
+        emit(res)
+
     if "cli" in phases:
-        emit(cli_phase(torch))
+        import tempfile
+        with tempfile.TemporaryDirectory(prefix="ghsmoke_") as root:
+            emit(cli_phase(torch, root))
+            if "video" in phases:
+                t0 = time.perf_counter()
+                res = video_phase(torch, root)
+                res["seconds"] = time.perf_counter() - t0
+                for name in ("raster_fwd", "raster_bwd"):
+                    kernels[name]["launches_video"] = res["launches"][name]
+                emit(res)
 
     if "strands" in phases:
         t0 = time.perf_counter()
@@ -410,12 +455,17 @@ def main() -> int:
             res["seconds"] = time.perf_counter() - t0
             emit(res)
         if "pipeline" in phases:
+            masks = {}
             t0 = time.perf_counter()
-            res = pipeline_phase(torch, layout, cfg)
-            res["seconds"] = time.perf_counter() - t0
+            res = pipeline_phase(torch, layout, cfg, then=(
+                lambda data, root: masks.update(masks_phase(torch, data, root)))
+                if "masks" in phases else None)
+            res["seconds"] = time.perf_counter() - t0 - masks.get("seconds", 0.0)
             for name in ("raster_fwd", "raster_bwd"):
                 kernels[name]["launches_pipeline"] = res["launches"][name]
             emit(res)
+            if masks:
+                emit(masks)
         del layout
 
     if "quality" in phases:
@@ -595,14 +645,13 @@ def train_phase(torch, scene, cfg, dev, kernels):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def cli_phase(torch):
-    """The stage-1 CLIs on the bench scene written to disk: train 60
-    iterations (evaluation at 30 and 60, PLY at 60, checkpoint and camera
-    pickles at 30), resume from the checkpoint to 40 in a second model
-    directory, and render the first model.  it/s is the median over the
-    10-step windows of the metrics log's timestamps (each logged step syncs
-    the card)."""
-    import tempfile
+def cli_phase(torch, root):
+    """The stage-1 CLIs on the bench scene written to disk under ``root``:
+    train 60 iterations (evaluation at 30 and 60, PLY at 60, checkpoint and
+    camera pickles at 30) into ``root/model``, resume from the checkpoint to
+    40 in a second model directory, and render the first model.  it/s is the
+    median over the 10-step windows of the metrics log's timestamps (each
+    logged step syncs the card)."""
     from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
     from gaussianhaircut_torch.config import ModelConfig
     from gaussianhaircut_torch.ops.rasterize import cuda_core
@@ -612,74 +661,73 @@ def cli_phase(torch):
 
     iters, n_evals = 60, 2
     eval_views = 5            # train() scores 5 sampled train views per test
-    with tempfile.TemporaryDirectory(prefix="ghsmoke_") as root:
-        src, m1, m2 = (os.path.join(root, d) for d in ("scene", "model", "resumed"))
-        t0 = time.perf_counter()
-        write_colmap_scene(bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED), src)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        loaded = load_scene(ModelConfig(source_path=src))
-        load_s = time.perf_counter() - t0
-        require(len(loaded.train_cameras) == N_VIEWS
-                and loaded.train_cameras[0].image.shape == (3, HEIGHT, WIDTH),
-                "cli: the written scene does not load back at its size")
-        del loaded
-        common = ["-s", src, "--sh_degree", "3", "--lambda_dorient", "0.1",
-                  "--tile", "32", "--densify_from_iter", "10",
-                  "--densification_interval", "10", "--opacity_reset_interval", "30"]
+    src, m1, m2 = (os.path.join(root, d) for d in ("scene", "model", "resumed"))
+    t0 = time.perf_counter()
+    write_colmap_scene(bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED), src)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_scene(ModelConfig(source_path=src))
+    load_s = time.perf_counter() - t0
+    require(len(loaded.train_cameras) == N_VIEWS
+            and loaded.train_cameras[0].image.shape == (3, HEIGHT, WIDTH),
+            "cli: the written scene does not load back at its size")
+    del loaded
+    common = ["-s", src, "--sh_degree", "3", "--lambda_dorient", "0.1",
+              "--tile", "32", "--densify_from_iter", "10",
+              "--densification_interval", "10", "--opacity_reset_interval", "30"]
 
-        torch.cuda.reset_peak_memory_stats()
-        cuda_core.reset_launch_counts()
-        state = train_gaussians.main(common + [
-            "-m", m1, "--iterations", str(iters), "--test_iterations", "30", "60",
-            "--save_iterations", "60", "--checkpoint_iterations", "30"])
-        torch.cuda.synchronize()
-        train_launches = dict(cuda_core.launches)
-        require(train_launches["raster_bwd"] == iters,
-                f"cli: raster_bwd launched {train_launches['raster_bwd']} times in {iters} steps")
-        require(train_launches["raster_fwd"] == iters + n_evals * eval_views,
-                f"cli: raster_fwd launched {train_launches['raster_fwd']} times, expected "
-                f"{iters} steps + {n_evals * eval_views} evaluation renders")
-        recs = _metrics(m1)
-        evals = {r["step"]: r for r in recs if "train_psnr" in r}
-        require(sorted(evals) == [30, 60], f"cli: evaluations at {sorted(evals)}")
-        for r in evals.values():
-            require(all(np.isfinite(r[k]) for k in ("train_l1", "train_ce", "train_or",
-                                                   "train_psnr")), f"cli: eval {r}")
-        rates = _window_rates(recs)
-        n_alive = state.model.num_alive()
-        n_ply = len(ply.read_ply(os.path.join(
-            m1, "point_cloud", f"iteration_{iters}", "point_cloud.ply"))["vertex"])
-        require(n_ply == n_alive, f"cli: PLY holds {n_ply} rows, num_alive {n_alive}")
-        for f in ("checkpoints/30.npz", "cameras/30.pkl", "cameras/30_matrices.pkl",
-                  "cfg_args.json", f"point_cloud/iteration_{iters}/raw_point_cloud.ply"):
-            require(os.path.exists(os.path.join(m1, f)), f"cli: {f} not written")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_core.reset_launch_counts()
+    state = train_gaussians.main(common + [
+        "-m", m1, "--iterations", str(iters), "--test_iterations", "30", "60",
+        "--save_iterations", "60", "--checkpoint_iterations", "30"])
+    torch.cuda.synchronize()
+    train_launches = dict(cuda_core.launches)
+    require(train_launches["raster_bwd"] == iters,
+            f"cli: raster_bwd launched {train_launches['raster_bwd']} times in {iters} steps")
+    require(train_launches["raster_fwd"] == iters + n_evals * eval_views,
+            f"cli: raster_fwd launched {train_launches['raster_fwd']} times, expected "
+            f"{iters} steps + {n_evals * eval_views} evaluation renders")
+    recs = _metrics(m1)
+    evals = {r["step"]: r for r in recs if "train_psnr" in r}
+    require(sorted(evals) == [30, 60], f"cli: evaluations at {sorted(evals)}")
+    for r in evals.values():
+        require(all(np.isfinite(r[k]) for k in ("train_l1", "train_ce", "train_or",
+                                               "train_psnr")), f"cli: eval {r}")
+    rates = _window_rates(recs)
+    n_alive = state.model.num_alive()
+    n_ply = len(ply.read_ply(os.path.join(
+        m1, "point_cloud", f"iteration_{iters}", "point_cloud.ply"))["vertex"])
+    require(n_ply == n_alive, f"cli: PLY holds {n_ply} rows, num_alive {n_alive}")
+    for f in ("checkpoints/30.npz", "cameras/30.pkl", "cameras/30_matrices.pkl",
+              "cfg_args.json", f"point_cloud/iteration_{iters}/raw_point_cloud.ply"):
+        require(os.path.exists(os.path.join(m1, f)), f"cli: {f} not written")
 
-        cuda_core.reset_launch_counts()
-        resumed = train_gaussians.main(common + [
-            "-m", m2, "--iterations", "40",
-            "--start_checkpoint", os.path.join(m1, "checkpoints", "30.npz")])
-        torch.cuda.synchronize()
-        resume_launches = dict(cuda_core.launches)
-        require(resumed.step == 40 and resume_launches["raster_bwd"] == 10
-                and resume_launches["raster_fwd"] == 10,
-                f"cli: resume from 30 to 40 launched {resume_launches}")
+    cuda_core.reset_launch_counts()
+    resumed = train_gaussians.main(common + [
+        "-m", m2, "--iterations", "40",
+        "--start_checkpoint", os.path.join(m1, "checkpoints", "30.npz")])
+    torch.cuda.synchronize()
+    resume_launches = dict(cuda_core.launches)
+    require(resumed.step == 40 and resume_launches["raster_bwd"] == 10
+            and resume_launches["raster_fwd"] == 10,
+            f"cli: resume from 30 to 40 launched {resume_launches}")
 
-        cuda_core.reset_launch_counts()
-        t0 = time.perf_counter()
-        render_gaussians.main(["-s", src, "-m", m1, "--sh_degree", "3"])
-        torch.cuda.synchronize()
-        render_s = time.perf_counter() - t0
-        render_launches = dict(cuda_core.launches)
-        require(render_launches["raster_fwd"] == N_VIEWS
-                and render_launches["raster_bwd"] == 0,
-                f"cli: render of {N_VIEWS} views launched {render_launches}")
-        out = os.path.join(m1, "train", f"ours_{iters}")
-        kinds = sorted(os.listdir(out))
-        names = {os.path.splitext(f)[0] for k in kinds for f in os.listdir(os.path.join(out, k))}
-        n_files = sum(len(os.listdir(os.path.join(out, k))) for k in kinds)
-        require(len(kinds) == 7 and len(names) == N_VIEWS and n_files == 7 * N_VIEWS,
-                f"cli: export holds {n_files} files in {kinds} for {len(names)} views")
+    cuda_core.reset_launch_counts()
+    t0 = time.perf_counter()
+    render_gaussians.main(["-s", src, "-m", m1, "--sh_degree", "3"])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_launches = dict(cuda_core.launches)
+    require(render_launches["raster_fwd"] == N_VIEWS
+            and render_launches["raster_bwd"] == 0,
+            f"cli: render of {N_VIEWS} views launched {render_launches}")
+    out = os.path.join(m1, "train", f"ours_{iters}")
+    kinds = sorted(os.listdir(out))
+    names = {os.path.splitext(f)[0] for k in kinds for f in os.listdir(os.path.join(out, k))}
+    n_files = sum(len(os.listdir(os.path.join(out, k))) for k in kinds)
+    require(len(kinds) == 7 and len(names) == N_VIEWS and n_files == 7 * N_VIEWS,
+            f"cli: export holds {n_files} files in {kinds} for {len(names)} views")
     return {"phase": "cli", "scene_write_s": write_s, "scene_load_s": load_s,
             "iterations": iters, "it_per_s_median": statistics.median(rates),
             "it_per_s_windows": rates, "eval": {str(k): v for k, v in evals.items()},
@@ -688,6 +736,240 @@ def cli_phase(torch):
             "launches": {"train": train_launches, "resume": resume_launches,
                          "render": render_launches},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def viewer_phase(torch, scene, dev):
+    """The live viewer during ``train()`` at the bench configuration: a
+    loopback client connected before training sends one request per
+    iteration (VIEWER_ITERS of them, lock-step), a 960x544 camera (bench
+    camera 1) at the iterations of VIEWER_ASKS and no camera at the others;
+    the last 960x544 request holds the trainer with keep_alive until one
+    more request lets it go.  Each reply must equal ``render()`` of the same
+    camera on the state the trainer held then (copied by the progress
+    callback after the step before); the training must finish.  The round
+    trip (request sent to reply read) includes the training step the
+    trainer finishes before its poll; ``reply_ms`` times the reply's render
+    and copy alone."""
+    import socket
+    import struct
+    import threading
+    from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from gaussianhaircut_torch.models import gaussian_model as gm
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
+    from gaussianhaircut_torch.render import network_gui
+    from gaussianhaircut_torch.render.renderer import default_background, render
+    from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, scene_camera
+    from gaussianhaircut_torch.train import stage1
+
+    geom = scene_camera(scene, 1, dev)
+    cam = scene.train_cameras[1]
+    view, proj = (m.cpu().numpy() for m in (geom.viewmatrix, geom.projmatrix))
+    extra = json.dumps({"fov_x": cam.fovx, "fov_y": cam.fovy}).encode()
+
+    def request(width, height, keep_alive):
+        body = struct.pack("IIbbbbf", width, height, 1, 0, 0, keep_alive, 1.0)
+        body += view.astype(np.float32).tobytes() + proj.astype(np.float32).tobytes()
+        body += struct.pack("I", len(extra)) + extra
+        return struct.pack("I", len(body)) + body
+
+    plan = [(WIDTH, HEIGHT) if it in VIEWER_ASKS else (0, 0)
+            for it in range(1, VIEWER_ITERS + 1)]
+    plan = [(w, h, int(i == VIEWER_ITERS - 1 and w > 0)) for i, (w, h) in enumerate(plan)]
+    plan.append((0, 0, 0))                       # lets the held trainer go
+    replies, round_trips, errors = [], [], []
+
+    def viewer(sock):
+        def exact(n):
+            out = b""
+            while len(out) < n:
+                chunk = sock.recv(n - len(out))
+                require(bool(chunk), "viewer: the trainer closed the connection")
+                out += chunk
+            return out
+        try:
+            for w, h, keep in plan:
+                t0 = time.perf_counter()
+                sock.sendall(request(w, h, keep))
+                image = exact(w * h * 3)
+                src = exact(struct.unpack("<I", exact(4))[0])
+                if w:
+                    round_trips.append((time.perf_counter() - t0) * 1e3)
+                replies.append((image, src))
+        except Exception as e:
+            errors.append(repr(e))
+        finally:
+            sock.close()
+
+    states = {}
+
+    def progress(it, st, m):
+        if it + 1 in VIEWER_ASKS:
+            states[it + 1] = (gm.GaussianParams(*(v.detach().clone()
+                                                  for v in st.model.params.values())),
+                              st.model.aux.alive.clone())
+        losses.append(m["total"])
+
+    losses = []
+    network_gui.init("127.0.0.1", 0)
+    try:
+        sock = socket.create_connection(network_gui.listener.getsockname(), timeout=120)
+        sock.settimeout(120)
+        thread = threading.Thread(target=viewer, args=(sock,), daemon=True)
+        cuda_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        thread.start()
+        state = stage1.train(
+            ModelConfig(sh_degree=3, use_barf=True, trainable_cameras=True,
+                        trainable_intrinsics=True, source_path="bench"),
+            OptimizationConfig(iterations=VIEWER_ITERS, lambda_dorient=0.1),
+            PipelineConfig(tile=32), scene, device=dev, progress_callback=progress)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(cuda_core.launches)
+        thread.join(120)
+    finally:
+        if network_gui.conn is not None:
+            network_gui.conn.close()
+        network_gui.listener.close()
+        network_gui.listener = network_gui.conn = None
+    require(not thread.is_alive() and not errors, f"viewer: the client failed {errors}")
+    require(state.step == VIEWER_ITERS and bool(np.isfinite(
+        torch.stack(losses).cpu().numpy()).all()), "viewer: the training did not finish")
+    require(len(replies) == len(plan) and all(src == b"bench" for _, src in replies),
+            f"viewer: {len(replies)} replies to {len(plan)} requests")
+    images = [img for img, _ in replies if img]
+    require(len(images) == len(VIEWER_ASKS), f"viewer: {len(images)} images")
+    want_launches = {"raster_fwd": VIEWER_ITERS + len(VIEWER_ASKS), "raster_bwd": VIEWER_ITERS}
+    require(all(launches[k] == v for k, v in want_launches.items()),
+            f"viewer: launched {launches}, expected {want_launches}")
+    # each reply against render() of its camera on the state it was rendered from
+    custom = dict(width=WIDTH, height=HEIGHT, world_view_transform=view,
+                  full_proj_transform=proj, fovx=cam.fovx, fovy=cam.fovy)
+    bg = default_background(False, dev)
+    rcfg = RasterConfig(tile_w=32, tile_h=32)
+
+    def reply(params, alive):
+        with torch.no_grad():
+            out = render(params, alive, 0, stage1.gui_camera(custom, dev), bg, rcfg)["render"]
+            return (out.clamp(0, 1) * 255).to(torch.uint8).permute(1, 2, 0).contiguous().cpu()
+
+    for it, img in zip(VIEWER_ASKS, images):
+        require(img == reply(*states[it]).numpy().tobytes(),
+                f"viewer: the reply at iteration {it} differs from render()")
+    return {"phase": "viewer", "iterations": VIEWER_ITERS, "requests": len(plan),
+            "images": len(images), "size": [WIDTH, HEIGHT], "replies_equal_render": True,
+            "round_trip_ms": round_trips, "round_trip_ms_median": statistics.median(round_trips),
+            "reply_ms": cuda_ms(lambda: reply(*states[VIEWER_ASKS[-1]]), REPS),
+            "train_s": train_s, "launches": launches}
+
+
+def video_phase(torch, root):
+    """``cli.render_video`` on the cli phase's trained model (``root/model``,
+    iteration 60) for VIDEO_FRAMES frames: one forward launch per frame;
+    frame 0 equal to the plain forward's render of the path's first camera
+    (the kernel's tile buffer bit for bit against the plain version's, and
+    the PNG's bytes against the plain image's); the AVI's index read back to
+    the frames' PNG bytes."""
+    from gaussianhaircut_torch.cli import render_video
+    from gaussianhaircut_torch.config import ModelConfig
+    from gaussianhaircut_torch.models import gaussian_model as gm
+    from gaussianhaircut_torch.ops.rasterize import common as C
+    from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
+    from gaussianhaircut_torch.postprocessing.video import read_avi
+    from gaussianhaircut_torch.render.renderer import default_background, fields_from_params
+    from gaussianhaircut_torch.scene.cameras import camera_geom
+    from gaussianhaircut_torch.scene.dataset import load_scene
+    from gaussianhaircut_torch.tools.profile_fixed import binned_fields
+    from gaussianhaircut_torch.utils.image import read_png
+
+    src, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_core.reset_launch_counts()
+    t0 = time.perf_counter()
+    render_video.main(["-s", src, "-m", model, "--sh_degree", "3", "--tile", "32",
+                       "--num_frames", str(VIDEO_FRAMES)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(cuda_core.launches)
+    require(launches["raster_fwd"] == VIDEO_FRAMES and launches["raster_bwd"] == 0,
+            f"video: {VIDEO_FRAMES} frames launched {launches}")
+    frames_dir = os.path.join(model, "video_frames")
+    names = sorted(os.listdir(frames_dir))
+    require(len(names) == VIDEO_FRAMES, f"video: {len(names)} frames")
+    avi = read_avi(os.path.join(model, "video.avi"))
+    require(avi["frames"] == [open(os.path.join(frames_dir, n), "rb").read() for n in names]
+            and (avi["width"], avi["height"]) == (WIDTH, HEIGHT),
+            "video: the AVI's index does not read back to the frames")
+
+    # frame 0 through the plain forward on the card
+    cams = load_scene(ModelConfig(source_path=src), load_gt=False).train_cameras
+    w2c = render_video.camera_path(cams, VIDEO_FRAMES)[0]
+    dev = torch.device("cuda")
+    state = gm.load_ply(os.path.join(model, "point_cloud", "iteration_60",
+                                     "raw_point_cloud.ply"), 0, 3, device=dev)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    geom = camera_geom(torch.as_tensor(w2c, device=dev), f32(cams[0].fovx), f32(cams[0].fovy),
+                       WIDTH, HEIGHT)
+    cfg = C.RasterConfig(tile_w=32, tile_h=32)
+    binned, _ = binned_fields(fields_from_params(state.params, state.aux.alive), 3, geom, cfg)
+    lay = (binned.payload, binned.chunk_start, binned.nchunks)
+    plain = plain_core.raster_fwd_plain(*lay, WIDTH, HEIGHT, cfg)
+    card = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
+    require(torch.equal(card, plain), "video: frame 0's forward differs from its plain version")
+    image, _ = C.assemble_image(plain, default_background(False, dev), WIDTH, HEIGHT, cfg)
+    want = (np.clip(image[:3].cpu().numpy().transpose(1, 2, 0), 0, 1) * 255).round()
+    require(np.array_equal(read_png(os.path.join(frames_dir, names[0])), want.astype(np.uint8)),
+            "video: frame 0 differs from the plain forward's render")
+    return {"phase": "video", "frames": VIDEO_FRAMES, "size": [WIDTH, HEIGHT],
+            "cli_s": cli_s, "frames_per_s": VIDEO_FRAMES / cli_s,
+            "frame0_num_rendered": binned.num_rendered, "frame0_equal_plain": True,
+            "avi_bytes": os.path.getsize(os.path.join(model, "video.avi")),
+            "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def masks_phase(torch, data, root):
+    """``cli.calc_masks`` (the GrabCut fallback) on the MASK_VIEWS of the
+    pipeline scene's raw 1920x1088 images: non-empty hair, face and body
+    masks with hair and face nearly disjoint (their overlap under 10% of the
+    hair, tests/test_masks_fallback.py:62-64); seconds per view, split into
+    the min cuts and the rest (both on the card)."""
+    import shutil
+    from gaussianhaircut_torch.cli import calc_masks
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.utils.image import read_png
+
+    t_phase = time.perf_counter()
+    scene = os.path.join(root, "masks_scene")
+    os.makedirs(os.path.join(scene, "input"))
+    for name in MASK_VIEWS:
+        shutil.copy(os.path.join(data, "images", name), os.path.join(scene, "input", name))
+    calc_masks.timings.update(min_cut_s=0.0, other_s=0.0)
+    cuda_core.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calc_masks.main(["--scene_path", scene, "--images_dir", "input"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    views = {}
+    for name in MASK_VIEWS:
+        m = {sub: read_png(os.path.join(scene, "masks", sub, name)) > 127
+             for sub in ("hair", "face", "body")}
+        require(all(v.shape == (PIPE_HEIGHT, PIPE_WIDTH) for v in m.values()),
+                f"masks: {name} masks are not {PIPE_WIDTH}x{PIPE_HEIGHT}")
+        views[name] = {sub: int(v.sum()) for sub, v in m.items()}
+        views[name]["hair_and_face"] = int((m["hair"] & m["face"]).sum())
+        require(all(views[name][sub] > 0 for sub in ("hair", "face", "body")),
+                f"masks: an empty mask in {name}: {views[name]}")
+        require(views[name]["hair_and_face"] < 0.1 * views[name]["hair"],
+                f"masks: hair and face overlap in {name}: {views[name]}")
+    n = len(MASK_VIEWS)
+    return {"phase": "masks", "views": n, "size": [PIPE_WIDTH, PIPE_HEIGHT],
+            "pixels": views, "s_per_view": seconds / n,
+            "min_cut_s_per_view": calc_masks.timings["min_cut_s"] / n,
+            "other_s_per_view": calc_masks.timings["other_s"] / n,
+            "launches": dict(cuda_core.launches), "seconds": time.perf_counter() - t_phase}
 
 
 def _metrics(path: str) -> list:
@@ -981,10 +1263,11 @@ def pipeline_scene(torch, fields, n_head, root, cfg):
     return time.perf_counter() - t0, share
 
 
-def pipeline_phase(torch, layout, cfg):
+def pipeline_phase(torch, layout, cfg, then=None):
     """``cli.run_pipeline`` on a scene rendered from the strand layout,
     then ``cli.export_strands`` and ``cli.metrics``; the checks and numbers
-    of the module docstring's item 10."""
+    of the module docstring's item 10.  ``then(scene_dir, root)`` runs last,
+    before the scene is removed."""
     import contextlib
     import pickle
     import shutil
@@ -1180,6 +1463,8 @@ def pipeline_phase(torch, layout, cfg):
         out["lpips_ms_per_pair"] = cuda_ms(lambda: lp.distance(r, g), 5)
         out["lpips_kind"] = lp.kind
         out["scalp"] = scalp_step(torch, data, os.path.join(root, "scalp_fit"), flame, i1, dev)
+        if then is not None:
+            then(data, root)
     return out
 
 

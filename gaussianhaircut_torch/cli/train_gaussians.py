@@ -5,10 +5,11 @@ flags).
     python3 -m gaussianhaircut_torch.cli.train_gaussians -s SCENE -m MODEL [...]
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
-Not ported: ``--gui`` (the SIBR live viewer) and a non-empty ``--mesh`` (the
-multi-device step); both raise ``NotImplementedError``.  The JAX-only
-``--raster_backend`` and ``--instance_capacity_mult`` are not accepted
-(see ``config.py``).
+``--gui`` listens for the SIBR live viewer on ``--ip`` / ``--port``
+(``render/network_gui.py``; the trainer answers its camera requests between
+steps).  Not ported: a non-empty ``--mesh`` (the multi-device step), which
+raises ``NotImplementedError``.  The JAX-only ``--raster_backend`` and
+``--instance_capacity_mult`` are not accepted (see ``config.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import argparse
 
 from gaussianhaircut_torch import config as cfg_mod
 from gaussianhaircut_torch.device import resolve_device
+from gaussianhaircut_torch.render import network_gui
 from gaussianhaircut_torch.scene.dataset import load_scene
 from gaussianhaircut_torch.train import stage1
 
@@ -38,7 +40,7 @@ def main(argv=None):
     parser.add_argument("--ip", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--gui", action="store_true",
-                        help="the SIBR live viewer (not ported)")
+                        help="serve the SIBR live viewer on --ip / --port")
     parser.add_argument("--mesh", type=str, default="",
                         help="multi-device mesh 'DATAxTILE' (not ported)")
     parser.add_argument("--device", type=str, default=None,
@@ -46,14 +48,13 @@ def main(argv=None):
                         "PyTorch path)")
     args = parser.parse_args(argv)
 
-    if args.gui:
-        raise NotImplementedError("--gui: the live viewer is not ported "
-                                  "(ROADMAP Queue 1 item 10)")
     if args.mesh:
         raise NotImplementedError("--mesh: the multi-device step is not ported "
-                                  "(ROADMAP Queue 1 item 9)")
+                                  "(ROADMAP Queue 1 item 7)")
 
     device = resolve_device(args.device)
+    if args.gui:
+        network_gui.init(args.ip, args.port)
     model_cfg = cfg_mod.extract(cfg_mod.ModelConfig, args)
     opt_cfg = cfg_mod.extract(cfg_mod.OptimizationConfig, args)
     pipe_cfg = cfg_mod.extract(cfg_mod.PipelineConfig, args)

@@ -38,14 +38,17 @@ def imread_gray(path: str) -> np.ndarray:
     return ((9797 * c[..., 0] + 19234 * c[..., 1] + 3737 * c[..., 2]) >> 15).astype(np.uint8)
 
 
+def cvt_gray(c):
+    """``cv2.cvtColor(RGB2GRAY)`` of int64 [..., 3] RGB values, numpy or
+    torch: 15-bit fixed-point weights, rounded."""
+    return (9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + (1 << 14)) >> 15
+
+
 def sharpness_iqa(img_rgb: np.ndarray) -> float:
     """Legacy no-reference quality score (higher is better): the variance of
     the 4-neighbour Laplacian (cv2.Laplacian, ksize 1, BORDER_REFLECT_101)
-    of the gray image (cv2.COLOR_RGB2GRAY: 15-bit fixed-point weights,
-    rounded) times the tonal spread."""
-    c = np.asarray(img_rgb).astype(np.int64)
-    gray = ((9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + (1 << 14))
-            >> 15).astype(np.uint8)
+    of the gray image (``cvt_gray``) times the tonal spread."""
+    gray = cvt_gray(np.asarray(img_rgb).astype(np.int64)).astype(np.uint8)
     x = gray.astype(np.float32)
     p = np.pad(x, 1, mode="reflect")
     lap = (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]) - 4 * x

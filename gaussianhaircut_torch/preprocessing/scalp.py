@@ -257,10 +257,10 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color: int = 255) -> None:
     """``cv2.fillPoly(img, [pts], color)`` on a uint8 [H, W] image, in
     place: integer (x, y) vertices, 8-connected edges, no shift
     (CollectPolyEdges and FillEdgeCollection of OpenCV's drawing.cpp).
-    Byte-equal to cv2 for vertices on the image; a polygon reaching past
-    the last column or row is clipped as OpenCV 4's source does, which
-    differs from cv2 5 at some border pixels (``paint_uv_mask`` reaches
-    there only at a uv of exactly 1)."""
+    Byte-equal to cv2 5, also for vertices past the image: an edge whose
+    line leaves the image is built from the clipped line's columns, as
+    found against cv2 5.0.0 (OpenCV 4's source keeps the unclipped edge
+    when the clipped line is horizontal)."""
     h, w = img.shape
     pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
     edges = []
@@ -271,7 +271,11 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color: int = 255) -> None:
         c0 = [pt0[0] << _XY_SHIFT, pt0[1]]
         c1 = [pt1[0] << _XY_SHIFT, pt1[1]]
         if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+            # cv2 5: the edge takes the clipped line's columns, and its rows
+            # too unless the clipped line is horizontal
             _clip_line(w, h, t0, t1)
+            c0 = [t0[0] << _XY_SHIFT, pt0[1]]
+            c1 = [t1[0] << _XY_SHIFT, pt1[1]]
             if t0[1] != t1[1]:
                 c0 = [t0[0] << _XY_SHIFT, t0[1]]
                 c1 = [t1[0] << _XY_SHIFT, t1[1]]

@@ -11,10 +11,10 @@ Loss stack (train_gaussians.py:120-140):
        + lambda_dmask * L1(mask2, gt_mask2)
        + lambda_dorient * OR(orient_angle | conf, weighted by gt conf, hair-mask)
 
-Ported: the single-camera step, the loop around it, evaluation, PLY and
-npz checkpoints (the JAX package's key names, so each package reads the
-other's) and the camera pickles stages 2 and 3 read.  The batched-camera and
-mesh steps are not ported.
+Ported: the single-camera step, the loop around it with the live viewer's
+poll, evaluation, PLY and npz checkpoints (the JAX package's key names, so
+each package reads the other's) and the camera pickles stages 2 and 3 read.
+The batched-camera and mesh steps are not ported.
 """
 from __future__ import annotations
 
@@ -30,8 +30,10 @@ from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, Pipeli
 from gaussianhaircut_torch.device import resolve_device
 from gaussianhaircut_torch.models import gaussian_model as gm
 from gaussianhaircut_torch.ops import losses as L
+from gaussianhaircut_torch.ops import projection as proj
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.ops.ssim import ssim
+from gaussianhaircut_torch.render import network_gui
 from gaussianhaircut_torch.render.renderer import default_background, render
 from gaussianhaircut_torch.scene.cameras import CameraBatch, CameraResiduals, camera_geom
 from gaussianhaircut_torch.train import densify, optim
@@ -372,6 +374,54 @@ def save_camera_pickles(state: TrainState, cams, cam_batch: CameraBatch,
         pickle.dump(matrices, f)
 
 
+def gui_camera(custom_cam: dict, device) -> proj.CameraGeom:
+    """The camera of a viewer request (``network_gui.receive``): its
+    row-vector view and projection matrices and fields of view."""
+    f32 = lambda v: torch.tensor(np.array(v, np.float32), device=device)
+    viewmatrix = f32(custom_cam["world_view_transform"])
+    return proj.CameraGeom(
+        viewmatrix=viewmatrix, projmatrix=f32(custom_cam["full_proj_transform"]),
+        tan_fovx=torch.tan(f32(custom_cam["fovx"] * 0.5)),
+        tan_fovy=torch.tan(f32(custom_cam["fovy"] * 0.5)),
+        width=custom_cam["width"], height=custom_cam["height"],
+        campos=torch.linalg.inv(viewmatrix)[3, :3])
+
+
+def poll_gui(state: TrainState, model_cfg: ModelConfig, raster_cfg: RasterConfig,
+             active_sh_degree: int, iteration: int, total_iters: int) -> None:
+    """Live-viewer poll, one call per training iteration
+    (train_gaussians.py:79-92): accept a SIBR connection if one is pending,
+    answer each received camera with a view rendered on the training device
+    (H x W x 3 uint8 bytes, the render clipped to [0, 1] and scaled by 255),
+    and return to training when the viewer lets it go (do_training and
+    (iteration < total or not keep_alive)).  Without a listener
+    (``network_gui.init`` not called) it returns at once."""
+    if network_gui.listener is None:
+        return
+    if network_gui.conn is None:
+        network_gui.try_connect()
+    while network_gui.conn is not None:
+        try:
+            net_image_bytes = None
+            (custom_cam, do_training, _convert_shs, _compute_cov3d,
+             keep_alive, scaling_modifier) = network_gui.receive()
+            if custom_cam is not None:
+                model = state.model
+                device = model.params.xyz.device
+                with torch.no_grad():
+                    out = render(model.params, model.aux.alive, active_sh_degree,
+                                 gui_camera(custom_cam, device),
+                                 default_background(model_cfg.white_background, device),
+                                 raster_cfg, scaling_modifier)
+                    img = (out["render"][:3].clamp(0.0, 1.0) * 255).to(torch.uint8)
+                net_image_bytes = img.permute(1, 2, 0).contiguous().cpu().numpy().tobytes()
+            network_gui.send(net_image_bytes, model_cfg.source_path)
+            if do_training and (iteration < total_iters or not keep_alive):
+                break
+        except Exception:
+            network_gui.conn = None
+
+
 def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
           pipe_cfg: PipelineConfig, scene, *,
           test_iterations=(1000, 5000, 15000, 30000),
@@ -430,6 +480,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     warned_slots = False
     for iteration in range(state.step + 1, opt_cfg.iterations + 1):
         sh_deg = min(iteration // 1000, model_cfg.sh_degree)
+        poll_gui(state, model_cfg, raster_cfg, sh_deg, iteration, opt_cfg.iterations)
         if not stack:
             stack = list(range(len(cams)))
             rng.shuffle(stack)

@@ -54,13 +54,17 @@ def _header(path: str, ihdr: bytes):
     return w, h, _CHANNELS[ctype]
 
 
-def png_size(path: str) -> tuple[int, int]:
-    """(width, height) from the header, as PIL's ``Image.open(p).size``."""
+def png_header(path: str) -> tuple[int, int, int]:
+    """(width, height, channels) from the header."""
     kind, ihdr = next(_chunks(path))
     if kind != b"IHDR":
         raise ValueError(f"{path}: PNG does not start with IHDR")
-    w, h, _ = _header(path, ihdr)
-    return w, h
+    return _header(path, ihdr)
+
+
+def png_size(path: str) -> tuple[int, int]:
+    """(width, height) from the header, as PIL's ``Image.open(p).size``."""
+    return png_header(path)[:2]
 
 
 def _paeth(a, b, c):
@@ -154,6 +158,14 @@ def write_png(path: str, img: np.ndarray, like_pil: bool = False) -> None:
     """uint8 [H, W] or [H, W, C] (C = 1, 2, 3, 4) -> 8-bit PNG, rows
     unfiltered; with ``like_pil``, byte for byte what PIL's
     ``Image.fromarray(img).save(path)`` writes."""
+    data = encode_png(img, like_pil)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray, like_pil: bool = False) -> bytes:
+    """The bytes ``write_png`` writes."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png: expected uint8, got {img.dtype}")
@@ -176,11 +188,8 @@ def write_png(path: str, img: np.ndarray, like_pil: bool = False) -> None:
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[ch], 0, 0, 0)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", ihdr)
-                + b"".join(chunk(b"IDAT", part) for part in idat)
-                + chunk(b"IEND", b""))
+    return (_SIGNATURE + chunk(b"IHDR", ihdr)
+            + b"".join(chunk(b"IDAT", part) for part in idat) + chunk(b"IEND", b""))
 
 
 def save_image(arr, path: str) -> None:

@@ -168,7 +168,6 @@ def test_render_cli_matches_jax(runs):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--gui"], "live viewer is not ported"),
     (["--mesh", "2x1"], "multi-device step is not ported"),
 ])
 def test_train_cli_refuses_unported_options(tmp_path, flags, match):

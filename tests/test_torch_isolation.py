@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``gaussianhaircut_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``, nor a
 package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV);
-a CPU step, the stage-1 CLIs, the strand CLIs, the orchestrator on a toy
+a CPU step, the stage-1 CLIs, ``render_video``, ``train_gaussians --gui``
+with a viewer, ``calc_masks``, the strand CLIs, the orchestrator on a toy
 scene, the metrics CLI, the scalp stage, the face glue, the synthetic-scene
 layout and both quality harnesses run with all of those unimportable; the
 entry points never pick the CPU on their own; and the kernel wrappers keep
@@ -100,6 +101,45 @@ _SCRIPT = textwrap.dedent("""
     assert state.step == 1
     render_gaussians.main(["-s", src, "-m", model, "--device", "cpu", "--sh_degree", "1"])
     assert len(os.listdir(os.path.join(model, "train", "ours_1", "renders"))) == 1
+
+    # the video, the live viewer and the mask fallback
+    import socket, struct, threading
+    from gaussianhaircut_torch.cli import calc_masks, render_video
+    from gaussianhaircut_torch.postprocessing.video import read_avi
+    from gaussianhaircut_torch.render import network_gui
+    src2 = os.path.join(root, "scene2")                # the path needs two cameras
+    write_colmap_scene(bench_scene(50, 32, 32, 2), src2)
+    render_video.main(["-s", src2, "-m", model, "--device", "cpu", "--sh_degree", "1",
+                       "--num_frames", "2"])
+    assert len(read_avi(os.path.join(model, "video.avi"))["frames"]) == 2
+    init = network_gui.init
+    def init_and_ask(host, port):
+        init(host, port)
+        sock = socket.create_connection(network_gui.listener.getsockname(), timeout=60)
+        sock.settimeout(60)
+        body = struct.pack("IIbbbbf", 0, 0, 1, 0, 0, 0, 1.0) + bytes(128) + struct.pack("I", 0)
+        def ask():
+            sock.sendall(struct.pack("I", len(body)) + body)
+            n = struct.unpack("<I", sock.recv(4))[0]
+            replies.append(sock.recv(n))
+            sock.close()
+        threading.Thread(target=ask, daemon=True).start()
+    replies = []
+    network_gui.init = init_and_ask
+    gui_model = os.path.join(root, "gui")
+    train_gaussians.main(["-s", src, "-m", gui_model, "--device", "cpu", "--sh_degree", "1",
+                          "--gaussian_capacity", "64", "--iterations", "1", "--gui",
+                          "--port", "0", "--test_iterations", "-1", "--save_iterations", "1",
+                          "--checkpoint_iterations", "-1"])
+    network_gui.listener.close()
+    network_gui.listener = network_gui.conn = None
+    assert replies == [os.path.abspath(src).encode()], replies
+    from gaussianhaircut_torch.utils.image import write_png
+    write_png(os.path.join(root, "masks_scene", "input", "0.png"),
+              rng.integers(0, 256, (24, 32, 3), dtype=np.uint8))
+    calc_masks.main(["--scene_path", os.path.join(root, "masks_scene"), "--device", "cpu"])
+    assert all(os.path.exists(os.path.join(root, "masks_scene", "masks", m, "0.png"))
+               for m in ("hair", "face", "body"))
 
     # the strand CLIs on that model: stage 2, stage 3 with a fresh SDS prior, export
     from gaussianhaircut_torch.cli import export_curves, train_latent_strands, train_strands
@@ -289,7 +329,10 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                                     "vis_img_dir")), []))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    for main, argv in ((train_latent_strands.main, strand),
+    from gaussianhaircut_torch.cli import calc_masks, render_video
+    for main, argv in ((render_video.main, ["-s", missing, "-m", str(tmp_path / "model")]),
+                       (calc_masks.main, ["--scene_path", missing]),
+                       (train_latent_strands.main, strand),
                        (train_strands.main, strand + [
                            "--model_path_curves", str(tmp_path / "curves"),
                            "--start_checkpoint_hair", str(tmp_path / "missing.npz")]),

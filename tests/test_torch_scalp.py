@@ -8,9 +8,9 @@
   decides near-ties;
 - ``fill_poly`` / ``paint_uv_mask`` are byte-equal to ``cv2.fillPoly`` and
   to the JAX function (which calls cv2) on random, degenerate and collinear
-  triangles with vertices on the image (a uv of exactly +1 maps one pixel
-  past it, where cv2 5 paints border pixels that OpenCV 4's clipping, which
-  the port follows, does not: not covered here);
+  triangles with vertices on the image, and ``fill_poly`` on random
+  polygons with vertices up to two pixels past every border (a uv of
+  exactly +1 maps one pixel past the image);
 - ``extract_scalp`` on the JAX test's UV-sphere scene
   (tests/test_preprocessing.py:112-200), with and without the canonical
   topology files: ``scalp.obj``, ``cut_scalp_verts.pickle`` and
@@ -130,6 +130,24 @@ def test_fill_poly_matches_cv2():
         got = np.zeros((size, size), np.uint8)
         t_scalp.fill_poly(got, pts, 255)
         np.testing.assert_array_equal(got, ref, err_msg=f"{size} {pts.tolist()}")
+
+
+def test_fill_poly_matches_cv2_past_the_border():
+    """200 random polygons on non-square images with vertices up to two
+    pixels past every border, where cv2 5 builds a clipped edge from the
+    clipped line's columns (and the edge's own rows when the clipped line
+    is horizontal)."""
+    rng = np.random.default_rng(1)
+    for _ in range(200):
+        h, w = (int(v) for v in rng.integers(3, 40, 2))
+        n = int(rng.integers(3, 8))
+        pts = np.stack([rng.integers(-2, w + 2, n), rng.integers(-2, h + 2, n)],
+                       1).astype(np.int32)
+        ref = np.zeros((h, w), np.uint8)
+        cv2.fillPoly(ref, [pts], 255)
+        got = np.zeros((h, w), np.uint8)
+        t_scalp.fill_poly(got, pts, 255)
+        np.testing.assert_array_equal(got, ref, err_msg=f"{h}x{w} {pts.tolist()}")
 
 
 def test_paint_uv_mask_matches_jax():
