@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,viewer,
-                                    cli,video,strands,kernel_strands,pipeline,masks,quality]
+                                    cli,mesh,video,strands,kernel_strands,pipeline,masks,quality]
 
-Drives the port's main paths, the stage-1 trainer and its CLIs, the live
-viewer, the video, the strand stack's CLIs, the whole reconstruction
+Drives the port's main paths, the stage-1 trainer and its CLIs, the
+multi-device step on one card, the live viewer, the video, the strand stack's CLIs, the whole reconstruction
 pipeline and the mask fallback, on the bench
 scene (seeded synthetic point cloud, 100k Gaussians, 960x544, SH degree 3,
 four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
@@ -38,12 +38,32 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    iteration-30 checkpoint to 40, and ``cli.render_gaussians``
                    on the result; launch counts must equal the steps plus
                    the renders;
-9. video        -- ``cli.render_video`` on the cli phase's model for 24
+9. mesh         -- the multi-device step (``parallel/``) on the cli phase's
+                   scene and iteration-30 checkpoint, every rank on this
+                   card: (a) a 1x1 mesh under NCCL in this process, one
+                   step equal to ``train_step`` bit for bit; (b) two ranks
+                   under gloo started by torch.distributed.run
+                   (``tools/mesh_check``): a 1x2 step (windows of 288
+                   rows) within tests/test_parallel.py's tolerances of the
+                   single-card step and a 2x1 step within them of both
+                   cameras' gradients averaged here by hand; (c)
+                   ``train_gaussians --mesh 2x2`` for 30 iterations with one
+                   densification, four ranks, started on an empty kernel
+                   build directory: finite losses, one forward and one
+                   backward launch per rank and step (and rank 0's five
+                   evaluation renders), equal state hashes, and rank 0's
+                   files load back in ``render_gaussians``.  Every
+                   collection of ranks is bit-identical.  Also records
+                   whether NCCL takes two ranks on one card, and requires
+                   that gloo takes CUDA tensors in every collective
+                   ``parallel/collectives.py`` uses; step ms, collective
+                   ms and bytes per step per rank;
+10. video        -- ``cli.render_video`` on the cli phase's model for 24
                    frames: exactly 24 forward launches, frame 0 equal to the
                    plain forward's render of its camera (the tile buffer bit
                    for bit, the PNG byte for byte), the AVI's index read
                    back to the frames' PNG bytes; frames/s and peak memory;
-10. strands     -- the strand stack on the bench scene written to disk:
+11. strands     -- the strand stack on the bench scene written to disk:
                    ``cli.train_gaussians`` for 20 iterations (the head PLY
                    and camera pickles), ``cli.train_latent_strands`` at the
                    full-width defaults (10,000 strands x 100 points, texture
@@ -55,12 +75,12 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    exported [10000, 100, 3] strands are finite; per stage
                    it/s, instances (the hair rows' share), chunks, the
                    largest tile and peak memory;
-11. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
+12. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
                    the head and 990k strand Gaussians): the forward bit for
                    bit, the backward row by row (two runs bit-identical),
                    the probe and the card's warp masks against their plain
                    versions, with the kernels' times and bounds;
-12. pipeline    -- the reconstruction pipeline from a scene directory:
+13. pipeline    -- the reconstruction pipeline from a scene directory:
                    8 views at 1920x1088 rendered from the strand scene of
                    ``strands`` (images, hair / face / body masks), COLMAP
                    text with the 100k points, a closed sphere head of
@@ -83,11 +103,11 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    one view's pixel-to-face map equal to the plain numpy
                    loop, a non-empty scalp cut from the head, a non-empty
                    UV mask, and its seconds;
-13. masks       -- ``cli.calc_masks`` (the GrabCut fallback) on two of that
+14. masks       -- ``cli.calc_masks`` (the GrabCut fallback) on two of that
                    scene's raw 1920x1088 views: non-empty hair, face and
                    body masks, hair and face nearly disjoint; seconds per
                    view, split into the min cuts and the rest;
-14. quality     -- the quality harnesses on the card: the strand gate of
+15. quality     -- the quality harnesses on the card: the strand gate of
                    tests/test_quality_gate_strands.py at its configuration
                    (96 px, 10 + 3 views, 384 strands x 16, texture 64, 500
                    stage-2 iterations, a 120-step distilled prior, 300
@@ -125,7 +145,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "viewer", "cli",
-          "video", "strands", "kernel_strands", "pipeline", "masks", "quality")
+          "mesh", "video", "strands", "kernel_strands", "pipeline", "masks", "quality")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -155,6 +175,48 @@ DISTILL_STEPS = 100
 VIDEO_FRAMES = 24
 VIEWER_ITERS, VIEWER_ASKS = 20, (2, 10, 20)
 MASK_VIEWS = ("000000.png", "000004.png")
+# the mesh phase: the CLI run's iterations and its one densification
+MESH_ITERS, MESH_DENSIFY = 30, 20
+# tests/test_parallel.py's tolerances, held by the mesh phase's steps
+MESH_TOL = {"metrics": (2e-4, 1e-5), "params": (1e-3, 2e-5), "cam_res": (1e-3, 1e-6),
+            "xyz_grad_accum": (1e-3, 1e-7), "denom": (0.0, 1e-6), "max_radii2d": (0.0, 1e-5)}
+# two ranks on this card: NCCL, then gloo with CUDA tensors in each collective
+NCCL_PROBE = """
+import torch, torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("nccl")
+t = torch.ones(4, device="cuda:0")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("nccl all_reduce on a shared card:", t.tolist())
+dist.destroy_process_group()
+"""
+GLOO_PROBE = """
+import json, torch, torch.distributed as dist
+dist.init_process_group("gloo")
+dev, r = torch.device("cuda:0"), dist.get_rank()
+ops = {
+    "all_reduce": lambda: dist.all_reduce(torch.full((8,), r + 1.0, device=dev)),
+    "all_reduce_max_int64": lambda: dist.all_reduce(torch.full((8,), r, device=dev),
+                                                    op=dist.ReduceOp.MAX),
+    "broadcast": lambda: dist.broadcast(torch.full((8,), r, device=dev), 0),
+    "all_gather": lambda: dist.all_gather([torch.zeros(8, device=dev) for _ in range(2)],
+                                          torch.full((8,), r + 1.0, device=dev)),
+}
+out = {}
+for name, op in ops.items():
+    # an op gloo refuses for CUDA tensors raises on both ranks before any
+    # message, so the next op still pairs up; what each raised is the record
+    try:
+        op()
+        torch.cuda.synchronize()
+        out[name] = "ok"
+    except (RuntimeError, ValueError) as e:
+        out[name] = str(e).splitlines()[0][:200]
+if r == 0:
+    print("GLOO_CUDA " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -284,6 +346,8 @@ def main() -> int:
             "pipeline renders its scene from the layout the strands phase trains")
     require("video" not in phases or "cli" in phases,
             "video renders the model the cli phase trains")
+    require("mesh" not in phases or "cli" in phases,
+            "mesh starts from the scene and the checkpoint the cli phase writes")
     require("masks" not in phases or "pipeline" in phases,
             "masks runs on the views of the pipeline phase's scene")
 
@@ -433,6 +497,11 @@ def main() -> int:
         import tempfile
         with tempfile.TemporaryDirectory(prefix="ghsmoke_") as root:
             emit(cli_phase(torch, root))
+            if "mesh" in phases:
+                res = mesh_phase(torch, root)
+                for name in ("raster_fwd", "raster_bwd"):
+                    kernels[name]["launches_mesh"] = res["launches_mesh"][name]
+                emit(res)
             if "video" in phases:
                 t0 = time.perf_counter()
                 res = video_phase(torch, root)
@@ -736,6 +805,294 @@ def cli_phase(torch, root):
             "launches": {"train": train_launches, "resume": resume_launches,
                          "render": render_launches},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _start_pair(script: str, log: str) -> list:
+    """Two ranks of an inline script (rendezvous on a free localhost port),
+    their output into ``log``.<rank>."""
+    port = str(_free_port())
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=port, RANK=str(r),
+                   LOCAL_RANK=str(r), WORLD_SIZE="2")
+        with open(f"{log}.{r}", "w") as out:
+            procs.append(subprocess.Popen([sys.executable, "-c", script], env=env,
+                                          stdout=out, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _finish_pair(procs, log: str, timeout: float) -> dict:
+    """Exit codes (None: killed at ``timeout``) and of each rank's output
+    the first line that names an error, else the last line."""
+    t_end = time.perf_counter() + timeout
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(0.0, t_end - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rcs.append(None)
+    picked = []
+    for r in range(len(procs)):
+        with open(f"{log}.{r}") as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        errors = [ln for ln in lines if "Error" in ln]
+        picked.append((errors[0] if errors else lines[-1] if lines else "")[:300])
+    return {"rcs": rcs, "lines": picked}
+
+
+def _torchrun(n: int, args: list, timeout: float) -> str:
+    """``python -m torch.distributed.run`` with n ranks on this host; raises
+    unless it exits 0.  Returns its standard output."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc_per_node={n}", *args], capture_output=True, text=True,
+                         env=env, cwd=HERE, timeout=timeout)
+    require(res.returncode == 0, f"torch.distributed.run {' '.join(args[:3])} exited "
+            f"{res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def hold_mesh_step(got, got_metrics: dict, want, want_metrics: dict, what: str) -> dict:
+    """A mesh step's state and metrics against a single-card oracle at
+    tests/test_parallel.py's tolerances -> the largest error of each
+    quantity."""
+    import torch
+    errs = {}
+
+    def hold(name, a, b, key):
+        rtol, atol = MESH_TOL[key]
+        a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+        beyond = (a - b).abs() > atol + rtol * b.abs()
+        errs[name] = float((a - b).abs().max())
+        require(not bool(beyond.any()), f"{what}: {name} beyond rtol {rtol} / atol {atol} "
+                f"of the oracle in {int(beyond.sum())} of {b.numel()} entries (max error "
+                f"{errs[name]})")
+
+    for k in ("l1", "ssim", "mask", "orient", "total"):
+        hold(k, float(got_metrics[k]), float(want_metrics[k]), "metrics")
+    for k in ("xyz", "opacity", "scaling", "features_dc"):
+        hold(k, getattr(got.model.params, k), getattr(want.model.params, k), "params")
+    for k in ("rotation", "translation", "fov"):
+        hold("cam_res." + k, getattr(got.cam_res, k), getattr(want.cam_res, k), "cam_res")
+    for k in ("xyz_grad_accum", "denom", "max_radii2d"):
+        hold(k, getattr(got.model.aux, k), getattr(want.model.aux, k), k)
+    require(torch.equal(got.cam_opt.count.cpu(), want.cam_opt.count.cpu()),
+            f"{what}: camera Adam counts differ")
+    require(torch.equal(got.model.aux.alive.cpu(), want.model.aux.alive.cpu()),
+            f"{what}: alive masks differ")
+    return errs
+
+
+def averaged_oracle(torch, state, cb, gt, cams, kw):
+    """The camera-parallel step computed in one process: each camera's
+    ``train_step`` gradients (``stage1.step_grads``), averaged by hand, the
+    densify statistics summed and maxed, then ``stage1.apply_grads``."""
+    from gaussianhaircut_torch.models.gaussian_model import GaussianAux, GaussianParams
+    from gaussianhaircut_torch.render.renderer import default_background, render
+    from gaussianhaircut_torch.scene.cameras import CameraResiduals, camera_geom
+    from gaussianhaircut_torch.train import stage1
+    bg = default_background(False, state.model.params.xyz.device)
+    per_cam = []
+    for i in cams:
+        def forward(params, cam_res, i=i):
+            cam = camera_geom(cb.colmap_transform[i], cb.fovx[i], cb.fovy[i], WIDTH, HEIGHT,
+                              cam_res, i, use_barf=True, trainable_cameras=True,
+                              trainable_intrinsics=True)
+            out = render(params, state.model.aux.alive, kw["active_sh_degree"], cam, bg,
+                         kw["raster_cfg"])
+            loss, parts = stage1.compute_losses(out, gt.image[i], gt.mask[i],
+                                                gt.orient_angle[i], gt.orient_conf[i],
+                                                kw["opt_cfg"])
+            return loss, (parts, out)
+        per_cam.append(stage1.step_grads(state, forward))
+    n = len(cams)
+    gparams = GaussianParams(*(sum(vals) / n for vals in zip(*(g.values() for g, _, _ in per_cam))))
+    gcam = CameraResiduals(*(sum(vals) for vals in zip(*(c.values() for _, c, _ in per_cam))))
+    gn, vis_count, radii = 0.0, 0.0, torch.zeros_like(state.model.aux.max_radii2d)
+    for g, _, (_, out) in per_cam:
+        vis = out["visibility_filter"]
+        norm = torch.linalg.norm(stage1.safe_viewspace(g)[:, :2], dim=-1)
+        gn = gn + torch.where(vis, norm, torch.zeros_like(norm))
+        vis_count = vis_count + vis.to(torch.float32)
+        radii = torch.maximum(radii, out["radii"].to(torch.float32))
+    aux = state.model.aux
+    new_aux = GaussianAux(aux.alive, torch.maximum(aux.max_radii2d, radii),
+                          aux.xyz_grad_accum + gn, aux.denom + vis_count)
+    drawn = torch.zeros(len(state.cam_opt.count), device=gn.device)
+    drawn[cams] = 1.0
+    new_state, _ = stage1.apply_grads(state, gparams, gcam, new_aux, drawn,
+                                      opt_cfg=kw["opt_cfg"], trainable_cameras=True,
+                                      trainable_intrinsics=True)
+    metrics = {k: sum(p[k].detach() for _, _, (p, _) in per_cam) / n for k in per_cam[0][2][0]}
+    return new_state, metrics
+
+
+def mesh_phase(torch, root):
+    """The multi-device step on this card (module doc, phase mesh), from the
+    cli phase's scene (``root/scene``) and iteration-30 checkpoint."""
+    import shutil
+    import torch.distributed as dist
+    from gaussianhaircut_torch.cli import render_gaussians
+    from gaussianhaircut_torch.config import ModelConfig
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.parallel import tile_parallel
+    from gaussianhaircut_torch.parallel import mesh as mesh_mod
+    from gaussianhaircut_torch.scene import ply
+    from gaussianhaircut_torch.scene.cameras import CameraBatch
+    from gaussianhaircut_torch.scene.dataset import load_scene
+    from gaussianhaircut_torch.tools import mesh_check
+    from gaussianhaircut_torch.tools.profile_fixed import nvidia_smi
+    from gaussianhaircut_torch.train import stage1
+
+    t_phase = time.perf_counter()
+    src = os.path.join(root, "scene")
+    ckpt = os.path.join(root, "model", "checkpoints", "30.npz")
+    work = os.path.join(root, "mesh")
+    os.makedirs(work)
+    nccl_probe = _start_pair(NCCL_PROBE, os.path.join(work, "nccl"))
+    gloo_probe = _start_pair(GLOO_PROBE, os.path.join(work, "gloo"))
+
+    dev = torch.device("cuda", 0)
+    scene = load_scene(ModelConfig(source_path=src))
+    cb = CameraBatch.from_cameras(scene.train_cameras, dev)
+    gt = stage1.GtBatch.from_cameras(scene.train_cameras, dev)
+    del scene
+    batch = os.path.join(work, "batch.npz")
+    mesh_check.save_batch(batch, cb, gt)
+    kw = mesh_check.step_kwargs(WIDTH, HEIGHT, 3, 32, 0.1)
+    state = stage1.load_checkpoint(ckpt, dev)
+    out = {"phase": "mesh", "nvidia_smi": nvidia_smi(), "runs": {}}
+    launches = {"raster_fwd": {}, "raster_bwd": {}}
+
+    # (a) 1x1 under NCCL in this process against train_step
+    ref, ref_m = stage1.train_step(state, cb, gt, 0, **kw)
+    mesh_mod.init_distributed(dev, store=dist.HashStore(), rank=0, world_size=1)
+    mesh = mesh_mod.make_mesh2d(1, 1, dev)
+    cuda_core.reset_launch_counts()
+    one, one_m = tile_parallel.dp_tp_train_step(mesh, **kw)(state, cb, gt, [0])
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k]["1x1"] = cuda_core.launches[k]
+    backend = mesh.backend
+    dist.destroy_process_group()
+    want, got = stage1.checkpoint_arrays(ref), stage1.checkpoint_arrays(one)
+    differ = sorted(k for k in want if not np.array_equal(want[k], got[k]))
+    require(not differ, f"mesh 1x1 ({backend}): differs from train_step in {differ}")
+    require(all(torch.equal(one_m[k], ref_m[k]) for k in ("l1", "ssim", "mask", "orient",
+                                                          "total")),
+            "mesh 1x1: metrics differ from train_step's")
+    require(launches["raster_fwd"]["1x1"] == 1 and launches["raster_bwd"]["1x1"] == 1,
+            f"mesh 1x1: launched {launches}")
+    out["runs"]["1x1"] = {"backend": backend, "equal_to_train_step": True,
+                          "num_rendered": one_m["num_rendered"]}
+
+    # (b) two ranks under gloo: 1x2 against the single-card step, 2x1
+    # against both cameras' gradients averaged here
+    steps_dir = os.path.join(work, "steps")
+    _torchrun(2, ["-m", "gaussianhaircut_torch.tools.mesh_check", "--batch", batch,
+                  "--checkpoint", ckpt, "--mesh", "1x2:0", "--mesh", "2x1:0,1",
+                  "--out", steps_dir, "--device", "cuda:0", "--repeats", "5"], timeout=300)
+    oracle, oracle_m = averaged_oracle(torch, state, cb, gt, [0, 1], kw)
+    for spec, want_state, want_m in (("1x2", ref, ref_m), ("2x1", oracle, oracle_m)):
+        ranks = [dict(np.load(os.path.join(steps_dir, spec, f"rank{r}.npz"))) for r in range(2)]
+        differ = sorted(k for k in ranks[0] if not np.array_equal(ranks[0][k], ranks[1][k]))
+        require(not differ, f"mesh {spec}: rank 1 differs from rank 0 in {differ}")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(steps_dir, spec, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        got = stage1.state_from_arrays(ranks[0], dev)
+        errs = hold_mesh_step(got, recs[0]["metrics"], want_state, want_m, f"mesh {spec}")
+        for k in launches:
+            launches[k][spec] = [rec["launches"][k] for rec in recs]
+            require(launches[k][spec] == [1, 1], f"mesh {spec}: {k} launched {launches[k][spec]}")
+        out["runs"][spec] = {
+            "backend": recs[0]["backend"], "max_err": errs, "ranks_identical": True,
+            "step_ms": [rec["step_ms"] for rec in recs],
+            "collective_ms": [rec["collective_ms"] for rec in recs],
+            "bytes_per_step": [rec["bytes_per_step"] for rec in recs],
+            "collective_calls": [rec["collective_calls"] for rec in recs],
+            "num_rendered": [rec["metrics"]["num_rendered"] for rec in recs]}
+    del oracle, ref, one
+
+    # (c) the CLI on a 2x2 mesh, four ranks, from an empty build directory
+    aside = cuda_core.BUILD_DIR + ".before_mesh"
+    os.rename(cuda_core.BUILD_DIR, aside)
+    model = os.path.join(work, "model")
+    t0 = time.perf_counter()
+    stdout = _torchrun(4, [
+        "-m", "gaussianhaircut_torch.cli.train_gaussians", "--mesh", "2x2", "--device", "cuda:0",
+        "-s", src, "-m", model, "--sh_degree", "3", "--lambda_dorient", "0.1", "--tile", "32",
+        "--iterations", str(MESH_ITERS), "--densify_from_iter", "10",
+        "--densification_interval", "10", "--densify_until_iter", str(MESH_DENSIFY + 1),
+        "--test_iterations", str(MESH_ITERS), "--save_iterations", str(MESH_ITERS),
+        "--checkpoint_iterations", str(MESH_ITERS)], timeout=400)
+    cli_s = time.perf_counter() - t0
+    built = sorted(os.listdir(cuda_core.BUILD_DIR))
+    require(sorted(built) == sorted(os.path.basename(cuda_core._lib_path(n))
+                                    for n in cuda_core.SOURCES),
+            f"mesh: the ranks' build left {built}")
+    shutil.rmtree(aside)
+    summary = [ln for ln in stdout.splitlines() if ln.startswith("mesh_summary ")]
+    require(len(summary) == 1, f"mesh 2x2: {len(summary)} summary lines")
+    summary = json.loads(summary[0].split(" ", 1)[1])
+    ranks = summary["ranks"]
+    for k in launches:
+        launches[k]["2x2"] = [r["launches"][k] for r in ranks]
+    eval_views = 5            # train() scores 5 sampled train views per test
+    require(launches["raster_bwd"]["2x2"] == [MESH_ITERS] * 4
+            and launches["raster_fwd"]["2x2"] == [MESH_ITERS + eval_views] + [MESH_ITERS] * 3,
+            f"mesh 2x2: launched {launches}")
+    recs = _metrics(model)
+    totals = [r["total"] for r in recs if "total" in r]
+    require(len(totals) == MESH_ITERS // 10 and bool(np.isfinite(totals).all()),
+            f"mesh 2x2: logged losses {totals}")
+    alive = {r["step"]: r["num_alive"] for r in recs if "num_alive" in r}
+    require(alive[MESH_DENSIFY] != alive[MESH_DENSIFY - 10],
+            f"mesh 2x2: num_alive did not change at the densification ({alive})")
+    final = stage1.load_checkpoint(os.path.join(model, "checkpoints", f"{MESH_ITERS}.npz"), dev)
+    n_ply = len(ply.read_ply(os.path.join(model, "point_cloud", f"iteration_{MESH_ITERS}",
+                                          "point_cloud.ply"))["vertex"])
+    require(final.step == MESH_ITERS and n_ply == final.model.num_alive(),
+            f"mesh 2x2: checkpoint step {final.step}, PLY rows {n_ply}")
+    require(stage1.state_digest(final) == summary["state_sha256"],
+            "mesh 2x2: rank 0's checkpoint is not the state the ranks agreed on")
+    cuda_core.reset_launch_counts()
+    render_gaussians.main(["-s", src, "-m", model, "--sh_degree", "3"])
+    torch.cuda.synchronize()
+    require(cuda_core.launches["raster_fwd"] == N_VIEWS,
+            f"mesh: render_gaussians of rank 0's model launched {dict(cuda_core.launches)}")
+    out["runs"]["2x2"] = {
+        "backend": summary["backend"], "cli_s": cli_s, "state_sha256": summary["state_sha256"],
+        "step_ms": [r["step_ms"] for r in ranks],
+        "collective_ms_per_step": [r["collective_ms_per_step"] for r in ranks],
+        "bytes_per_step": [r["bytes_per_step"] for r in ranks],
+        "losses": totals, "num_alive": alive, "eval_psnr": [r["train_psnr"] for r in recs
+                                                            if "train_psnr" in r],
+        "built_from_empty": built}
+
+    out["nccl_two_ranks_one_card"] = _finish_pair(nccl_probe, os.path.join(work, "nccl"), 60)
+    gloo = _finish_pair(gloo_probe, os.path.join(work, "gloo"), 60)
+    with open(os.path.join(work, "gloo.0")) as f:
+        found = [ln for ln in f.read().splitlines() if ln.startswith("GLOO_CUDA ")]
+    require(gloo["rcs"] == [0, 0] and len(found) == 1, f"mesh: the gloo probe failed: {gloo}")
+    ops = json.loads(found[0].split(" ", 1)[1])
+    refused = sorted(op for op, res in ops.items() if res != "ok")
+    require(not refused, f"mesh: gloo refuses CUDA tensors in {refused}, which "
+            f"parallel/collectives.py hands it as they are ({ops})")
+    out["gloo_cuda_ops"] = ops
+    out["launches_mesh"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def viewer_phase(torch, scene, dev):

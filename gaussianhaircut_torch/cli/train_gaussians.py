@@ -7,16 +7,28 @@ flags).
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
 ``--gui`` listens for the SIBR live viewer on ``--ip`` / ``--port``
 (``render/network_gui.py``; the trainer answers its camera requests between
-steps).  Not ported: a non-empty ``--mesh`` (the multi-device step), which
-raises ``NotImplementedError``.  The JAX-only ``--raster_backend`` and
-``--instance_capacity_mult`` are not accepted (see ``config.py``).
+steps).  ``--mesh DATAxTILE`` trains on a (camera, tile-row) process mesh,
+one process per rank:
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m gaussianhaircut_torch.cli.train_gaussians --mesh DxT -s ... -m ...
+
+with N = D * T; each rank takes ``cuda:LOCAL_RANK`` (``--device cuda:0``:
+the ranks share one card, over gloo; ``--device cpu``: the CPU), rank 0
+alone writes the model directory and serves the viewer (``parallel/mesh.py``).
+The JAX-only ``--raster_backend`` and ``--instance_capacity_mult`` are not
+accepted (see ``config.py``).
 """
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch.distributed as dist
 
 from gaussianhaircut_torch import config as cfg_mod
 from gaussianhaircut_torch.device import resolve_device
+from gaussianhaircut_torch.parallel import mesh as mesh_mod
 from gaussianhaircut_torch.render import network_gui
 from gaussianhaircut_torch.scene.dataset import load_scene
 from gaussianhaircut_torch.train import stage1
@@ -42,26 +54,31 @@ def main(argv=None):
     parser.add_argument("--gui", action="store_true",
                         help="serve the SIBR live viewer on --ip / --port")
     parser.add_argument("--mesh", type=str, default="",
-                        help="multi-device mesh 'DATAxTILE' (not ported)")
+                        help="multi-device mesh 'DATAxTILE' (e.g. 4x2): cameras "
+                        "shard over DATA ranks, each camera's tile rows over TILE "
+                        "ranks; one process per rank under torch.distributed.run "
+                        "(empty = one device)")
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device; default cuda (cpu runs the plain "
-                        "PyTorch path)")
+                        help="torch device; default cuda (cuda:LOCAL_RANK under "
+                        "--mesh; cpu runs the plain PyTorch path)")
     args = parser.parse_args(argv)
 
     if args.mesh:
-        raise NotImplementedError("--mesh: the multi-device step is not ported "
-                                  "(ROADMAP Queue 1 item 7)")
-
-    device = resolve_device(args.device)
-    if args.gui:
+        mesh_mod.require_launcher(*mesh_mod.parse_mesh_spec(args.mesh))
+    launched = bool(args.mesh) and "WORLD_SIZE" in os.environ
+    device = (mesh_mod.init_distributed(args.device) if launched
+              else resolve_device(args.device))
+    main_rank = mesh_mod.process_rank() == 0
+    if args.gui and main_rank:
         network_gui.init(args.ip, args.port)
     model_cfg = cfg_mod.extract(cfg_mod.ModelConfig, args)
     opt_cfg = cfg_mod.extract(cfg_mod.OptimizationConfig, args)
     pipe_cfg = cfg_mod.extract(cfg_mod.PipelineConfig, args)
     save_iters = sorted(set(args.save_iterations + [opt_cfg.iterations]))
 
-    print(f"Optimizing {model_cfg.model_path}")
-    cfg_mod.save_config(model_cfg.model_path, model_cfg, opt_cfg, pipe_cfg)
+    if main_rank:
+        print(f"Optimizing {model_cfg.model_path}")
+        cfg_mod.save_config(model_cfg.model_path, model_cfg, opt_cfg, pipe_cfg)
 
     scene = load_scene(model_cfg)
     state = stage1.train(model_cfg, opt_cfg, pipe_cfg, scene,
@@ -69,8 +86,11 @@ def main(argv=None):
                          save_iterations=tuple(save_iters),
                          checkpoint_iterations=tuple(args.checkpoint_iterations),
                          start_checkpoint=args.start_checkpoint,
-                         device=device)
-    print("\nTraining complete.")
+                         mesh_spec=args.mesh, device=device)
+    if main_rank:
+        print("\nTraining complete.")
+    if launched:
+        dist.destroy_process_group()
     return state
 
 

@@ -51,8 +51,10 @@ def segment_sum(dpay: torch.Tensor, binned: C.Binned) -> torch.Tensor:
 class _Rasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ndc, conic, colors, opacity, depth, valid, bg, width,
-                height, cfg, info):
-        mean_pix = ndc_xy_to_pixel(ndc, width, height)
+                height, full_height, row0, cfg, info):
+        mean_pix = ndc_xy_to_pixel(ndc, width, full_height)
+        if row0:
+            mean_pix = mean_pix - torch.tensor([0.0, row0], device=mean_pix.device)
         pre = C.preprocess(mean_pix, conic, depth, valid, width, height, cfg,
                            opacity=opacity)
         binned = C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
@@ -62,7 +64,7 @@ class _Rasterize(torch.autograd.Function):
         image, t_final = C.assemble_image(tile_buf, bg, width, height, cfg)
         info["num_rendered"] = binned.num_rendered
         ctx.binned = binned
-        ctx.dims = (width, height, cfg)
+        ctx.dims = (width, height, full_height, cfg)
         ctx.save_for_backward(tile_buf, bg, t_final)
         radii = pre.radius.to(torch.int32)
         visibility = pre.radius > 0
@@ -72,14 +74,14 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_img, g_t, _g_radii, _g_vis):
         tile_buf, bg, t_final = ctx.saved_tensors
-        width, height, cfg = ctx.dims
+        width, height, full_height, cfg = ctx.dims
         b = ctx.binned
         gbuf = C.disassemble_cotangent(g_img, g_t, bg, width, height, cfg)
         dpay = cuda_core.raster_bwd(b.payload, b.chunk_start, b.nchunks,
                                     tile_buf, gbuf, width, height, cfg)
         seg = segment_sum(dpay, b)
         d_ndc = torch.stack([seg[:, C.F_GX] * (width * 0.5),
-                             seg[:, C.F_GY] * (height * 0.5),
+                             seg[:, C.F_GY] * (full_height * 0.5),
                              torch.zeros_like(seg[:, 0])], dim=-1)
         d_conic = seg[:, C.F_CA:C.F_CC + 1]
         d_opacity = seg[:, C.F_OP:C.F_OP + 1]
@@ -87,24 +89,33 @@ class _Rasterize(torch.autograd.Function):
         d_bg = torch.nn.functional.pad(torch.einsum("chw,hw->c", g_img, t_final),
                                        (0, bg.shape[0] - C.NUM_CHANNELS))
         return (d_ndc, d_conic, d_colors, d_opacity, None, None, d_bg,
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def rasterize(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tensor,
               opacity: torch.Tensor, depth: torch.Tensor, valid: torch.Tensor,
               bg: torch.Tensor, width: int, height: int,
-              cfg: C.RasterConfig | None = None) -> dict[str, Any]:
+              cfg: C.RasterConfig | None = None,
+              full_height: int | None = None, row0: int = 0) -> dict[str, Any]:
     """Differentiable 10-channel Gaussian splatting (one camera).
 
     ndc [P, 3] NDC means (xy used); conic [P, 3]; colors [P, 10];
     opacity [P, 1] activated; depth [P] view z (sort key, not
     differentiated); valid [P] bool; bg [10].
+    ``full_height`` and ``row0`` are the row-window hook of the tile-row
+    mesh step: NDC maps to pixels (and the gradient back) with the full
+    image's height, and the grid and the kernels cover rows [row0, row0 +
+    height) of it.  The JAX package shifts ndc_y by -2*row0/full_height
+    instead; subtracting the whole-tile offset from the pixel means is
+    exact for means within [row0 / 2, 2 * row0] (Sterbenz), so a window's
+    pixels are the full render's bit for bit, alpha tests and early stops
+    included.
     Returns render [10, H, W], final_T [H, W], radii [P] int32,
     visibility [P] bool and num_rendered (a Python int)."""
     cfg = cfg or C.RasterConfig()
     info: dict = {}
     image, t_final, radii, visibility = _Rasterize.apply(
         ndc, conic, colors, opacity, depth.to(torch.float32), valid, bg,
-        width, height, cfg, info)
+        width, height, full_height or height, row0, cfg, info)
     return {"render": image, "final_T": t_final, "radii": radii,
             "visibility": visibility, "num_rendered": info["num_rendered"]}

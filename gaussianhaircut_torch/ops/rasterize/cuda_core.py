@@ -17,7 +17,8 @@ Build: each source is compiled by ``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared`` into its own shared library with a plain C
 interface (the compilers run at once), at first use, into
 ``gaussianhaircut_torch/csrc/build/`` (listed in ``.gitignore``); the
-libraries are loaded with ``ctypes``.
+libraries are loaded with ``ctypes``.  Several processes may build at once
+(each writes its own temporary file and renames it into place).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain PyTorch version from ``plain_core.py``.  Each launch adds one to
@@ -95,17 +96,21 @@ def build(verbose: bool = False) -> dict[str, str]:
             out = _lib_path(name)
             if os.path.exists(out):
                 continue
+            # a temporary name of this process's own: the ranks of a mesh
+            # may build into one empty directory at once; the rename is
+            # atomic, so a loader sees a whole library or none
+            tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", out + ".tmp", os.path.join(_CSRC, src)]
-            procs[name] = (out, subprocess.Popen(
+                   "-o", tmp, os.path.join(_CSRC, src)]
+            procs[name] = (out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
-        for name, (out, proc) in procs.items():
+        for name, (out, tmp, proc) in procs.items():
             logs[name] = proc.communicate()[0]
             if proc.returncode != 0:
                 failed.append(name)
             else:
-                os.replace(out + ".tmp", out)
+                os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                                + "\n".join(logs[n] for n in failed))

@@ -13,15 +13,19 @@ Loss stack (train_gaussians.py:120-140):
 
 Ported: the single-camera step, the loop around it with the live viewer's
 poll, evaluation, PLY and npz checkpoints (the JAX package's key names, so
-each package reads the other's) and the camera pickles stages 2 and 3 read.
-The batched-camera and mesh steps are not ported.
+each package reads the other's) and the camera pickles stages 2 and 3 read,
+and the multi-device mesh step behind ``mesh_spec`` (``parallel/``).  The
+batched-camera step is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import os
 import pickle
 import random
+import time
 
 import numpy as np
 import torch
@@ -31,6 +35,7 @@ from gaussianhaircut_torch.device import resolve_device
 from gaussianhaircut_torch.models import gaussian_model as gm
 from gaussianhaircut_torch.ops import losses as L
 from gaussianhaircut_torch.ops import projection as proj
+from gaussianhaircut_torch.ops.rasterize import cuda_core
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.ops.ssim import ssim
 from gaussianhaircut_torch.render import network_gui
@@ -122,6 +127,55 @@ def compute_losses(out, gt_image, gt_mask, gt_orient_angle, gt_orient_conf,
                    "total": total}
 
 
+def step_grads(state: TrainState, forward):
+    """Gradients of the loss ``forward(params, cam_res) -> (loss, aux)`` at
+    the state's parameters and camera residuals -> (gparams, gcam, aux).
+    Leaves the loss does not reach get zero gradients (all of them where it
+    reaches none: a mesh rank whose window lies below the image)."""
+    params = state.model.params.map(lambda t: t.detach().requires_grad_())
+    cam_res = state.cam_res.map(lambda t: t.detach().requires_grad_())
+    loss, aux = forward(params, cam_res)
+    leaves = params.values() + cam_res.values()
+    grads = (torch.autograd.grad(loss, leaves, allow_unused=True) if loss.requires_grad
+             else [None] * len(leaves))
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    n_p = len(params.values())
+    return gm.GaussianParams(*grads[:n_p]), CameraResiduals(*grads[n_p:]), aux
+
+
+def safe_viewspace(gparams: gm.GaussianParams) -> torch.Tensor:
+    """The viewspace gradient the densify statistics read: sanitized first,
+    since the port is excluded from the NaN guard."""
+    vs = gparams.viewspace
+    return torch.where(torch.isfinite(vs), vs, torch.zeros_like(vs))
+
+
+def apply_grads(state: TrainState, gparams: gm.GaussianParams,
+                gcam: CameraResiduals, new_aux, drawn: torch.Tensor, *,
+                opt_cfg: OptimizationConfig, trainable_cameras: bool,
+                trainable_intrinsics: bool):
+    """The update of one step from its gradients: the NaN-guarded Adam on
+    the Gaussian parameters (train_gaussians.py:174-181; torch.where, not a
+    multiplicative mask, since 0 * NaN = NaN; a skipped step leaves moments
+    and count as they were), Adam on the camera rows ``drawn`` ([N] float,
+    1 where drawn) and the new densify statistics ``new_aux``.  Returns
+    (new_state, ok)."""
+    ok = optim.grads_are_finite(
+        gparams.replace(viewspace=torch.zeros_like(gparams.viewspace)))
+    lrs = param_lrs(opt_cfg, state.model.spatial_lr_scale, state.step)
+    updates, new_opt = optim.adam_update(gparams, state.opt, lrs)
+    with torch.no_grad():
+        new_params = state.model.params.map(
+            lambda p, u: p + torch.where(ok, u, torch.zeros_like(u)), updates)
+        new_opt = optim.where_ok(ok, new_opt, state.opt)
+        if trainable_cameras or trainable_intrinsics:
+            new_cam_res, new_cam_opt = _camera_adam(state, gcam, drawn, opt_cfg)
+        else:
+            new_cam_res, new_cam_opt = state.cam_res, state.cam_opt
+    new_model = state.model.replace(params=new_params, aux=new_aux)
+    return TrainState(new_model, new_opt, new_cam_res, new_cam_opt, state.step + 1), ok
+
+
 def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
                cam_idx: int, *, active_sh_degree: int, width: int, height: int,
                raster_cfg: RasterConfig, opt_cfg: OptimizationConfig,
@@ -132,79 +186,55 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     device = state.model.params.xyz.device
     bg = default_background(white_background, device)
     alive = state.model.aux.alive
-    params = state.model.params.map(lambda t: t.detach().requires_grad_())
-    cam_res = state.cam_res.map(lambda t: t.detach().requires_grad_())
 
-    cam = camera_geom(cam_batch.colmap_transform[cam_idx], cam_batch.fovx[cam_idx],
-                      cam_batch.fovy[cam_idx], width, height, cam_res, cam_idx,
-                      use_barf=use_barf, trainable_cameras=trainable_cameras,
-                      trainable_intrinsics=trainable_intrinsics)
-    out = render(params, alive, active_sh_degree, cam, bg, raster_cfg)
-    loss, parts = compute_losses(out, gt.image[cam_idx], gt.mask[cam_idx],
-                                 gt.orient_angle[cam_idx],
-                                 gt.orient_conf[cam_idx], opt_cfg)
-    leaves = params.values() + cam_res.values()
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-    n_p = len(params.values())
-    gparams = gm.GaussianParams(*grads[:n_p])
-    gcam = CameraResiduals(*grads[n_p:])
+    def forward(params, cam_res):
+        cam = camera_geom(cam_batch.colmap_transform[cam_idx], cam_batch.fovx[cam_idx],
+                          cam_batch.fovy[cam_idx], width, height, cam_res, cam_idx,
+                          use_barf=use_barf, trainable_cameras=trainable_cameras,
+                          trainable_intrinsics=trainable_intrinsics)
+        out = render(params, alive, active_sh_degree, cam, bg, raster_cfg)
+        loss, parts = compute_losses(out, gt.image[cam_idx], gt.mask[cam_idx],
+                                     gt.orient_angle[cam_idx],
+                                     gt.orient_conf[cam_idx], opt_cfg)
+        return loss, (parts, out)
 
-    # densify stats read the viewspace port; sanitized first (the port is
-    # excluded from the NaN guard)
-    vs = gparams.viewspace
-    safe_vs = torch.where(torch.isfinite(vs), vs, torch.zeros_like(vs))
-    new_aux = densify.add_stats(state.model.aux, safe_vs, out["radii"],
+    gparams, gcam, (parts, out) = step_grads(state, forward)
+    new_aux = densify.add_stats(state.model.aux, safe_viewspace(gparams), out["radii"],
                                 out["visibility_filter"])
-
-    # Gaussian Adam step with the NaN guard (train_gaussians.py:174-181):
-    # torch.where, not a multiplicative mask (0 * NaN = NaN); a skipped step
-    # leaves moments and count as they were
-    ok = optim.grads_are_finite(gparams.replace(viewspace=torch.zeros_like(vs)))
-    lrs = param_lrs(opt_cfg, state.model.spatial_lr_scale, state.step)
-    updates, new_opt = optim.adam_update(gparams, state.opt, lrs)
-    with torch.no_grad():
-        new_params = state.model.params.map(
-            lambda p, u: p + torch.where(ok, u, torch.zeros_like(u)), updates)
-        new_opt = optim.where_ok(ok, new_opt, state.opt)
-        if trainable_cameras or trainable_intrinsics:
-            new_cam_res, new_cam_opt = _camera_adam(state, gcam, cam_idx, opt_cfg)
-        else:
-            new_cam_res, new_cam_opt = state.cam_res, state.cam_opt
-
-    new_model = state.model.replace(params=new_params, aux=new_aux)
-    new_state = TrainState(new_model, new_opt, new_cam_res, new_cam_opt,
-                           state.step + 1)
+    drawn = torch.zeros(len(state.cam_opt.count), device=device)
+    drawn[cam_idx] = 1.0
+    new_state, ok = apply_grads(state, gparams, gcam, new_aux, drawn, opt_cfg=opt_cfg,
+                                trainable_cameras=trainable_cameras,
+                                trainable_intrinsics=trainable_intrinsics)
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["num_rendered"] = out["num_rendered"]
     metrics["grads_ok"] = ok
     return new_state, metrics
 
 
-def _camera_adam(state: TrainState, gcam: CameraResiduals, cam_idx: int,
+def _camera_adam(state: TrainState, gcam: CameraResiduals, drawn: torch.Tensor,
                  opt_cfg: OptimizationConfig):
-    """Adam on the drawn camera's residual row only."""
+    """Adam on the drawn camera rows only (every row's moments and count
+    stay as they were unless its row was drawn): one row for the
+    single-camera step, the union of the data ranks' rows for the mesh step
+    (the JAX package's dense-row update, data_parallel.py:107-138)."""
     do_cam = optim.grads_are_finite(gcam) & (state.step < opt_cfg.iterations_cam)
     clrs = cam_lrs(opt_cfg, state.model.spatial_lr_scale, state.step)
-    row_count = (state.cam_opt.count[cam_idx] + 1).to(torch.float32)
+    sel = (drawn * do_cam.to(torch.float32))[:, None] > 0
+    count = state.cam_opt.count + sel[:, 0].to(torch.int32)
+    cnt = torch.clamp(count, min=1).to(torch.float32)[:, None]
     b1, b2, eps = 0.9, 0.999, 1e-15
-    c1 = 1 - torch.pow(b1, row_count)
-    c2 = 1 - torch.pow(b2, row_count)
+    c1 = 1 - torch.pow(b1, cnt)
+    c2 = 1 - torch.pow(b2, cnt)
     mus, nus, ress = {}, {}, {}
     for name in CameraResiduals.names():
         mu, nu = getattr(state.cam_opt.mu, name), getattr(state.cam_opt.nu, name)
         g, res = getattr(gcam, name), getattr(state.cam_res, name)
         lr = getattr(clrs, name)
-        mu_row = b1 * mu[cam_idx] + (1 - b1) * g[cam_idx]
-        nu_row = b2 * nu[cam_idx] + (1 - b2) * g[cam_idx] ** 2
-        step_row = -lr * (mu_row / c1) / (torch.sqrt(nu_row / c2) + eps)
-        mus[name], nus[name], ress[name] = mu.clone(), nu.clone(), res.clone()
-        mus[name][cam_idx] = torch.where(do_cam, mu_row, mu[cam_idx])
-        nus[name][cam_idx] = torch.where(do_cam, nu_row, nu[cam_idx])
-        ress[name][cam_idx] = res[cam_idx] + torch.where(
-            do_cam, step_row, torch.zeros_like(step_row))
-    count = state.cam_opt.count.clone()
-    count[cam_idx] += do_cam.to(torch.int32)
+        mus[name] = torch.where(sel, b1 * mu + (1 - b1) * g, mu)
+        nus[name] = torch.where(sel, b2 * nu + (1 - b2) * g ** 2, nu)
+        step_row = -lr * (mus[name] / c1) / (torch.sqrt(nus[name] / c2) + eps)
+        ress[name] = res + torch.where(sel, step_row, torch.zeros_like(step_row))
     return (CameraResiduals(**ress),
             CamAdamState(CameraResiduals(**mus), CameraResiduals(**nus), count))
 
@@ -320,10 +350,10 @@ def evaluate(state: TrainState, cams, cam_batch: CameraBatch, gt: GtBatch,
             f"{name}_or": totals[2], f"{name}_psnr": totals[3]}
 
 
-def save_checkpoint(state: TrainState, path: str) -> None:
-    """npz checkpoint: model capture + optimizer moments + camera residuals
-    (train_gaussians.py:198-208), under the JAX package's key names."""
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+def checkpoint_arrays(state: TrainState) -> dict:
+    """The state as the checkpoint's numpy arrays: model capture, optimizer
+    moments, camera residuals and the step (train_gaussians.py:198-208),
+    under the JAX package's key names."""
     np_ = lambda t: t.detach().cpu().numpy()
     blob = gm.capture(state.model)
     for rec, prefix in ((state.opt.mu, "opt.mu"), (state.opt.nu, "opt.nu"),
@@ -334,13 +364,33 @@ def save_checkpoint(state: TrainState, path: str) -> None:
     blob["opt.count"] = np_(state.opt.count)
     blob["cam_opt.count"] = np_(state.cam_opt.count)
     blob["step"] = np.asarray(state.step, np.int32)
-    np.savez(path, **blob)
+    return blob
+
+
+def state_digest(state: TrainState) -> str:
+    """sha256 (hex) of every array of the state, by key: equal states,
+    equal bits."""
+    h = hashlib.sha256()
+    for k, v in sorted(checkpoint_arrays(state).items()):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def save_checkpoint(state: TrainState, path: str) -> None:
+    """npz checkpoint of ``checkpoint_arrays``."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **checkpoint_arrays(state))
 
 
 def load_checkpoint(path: str, device=None) -> TrainState:
     """A checkpoint written by ``save_checkpoint`` of either package."""
     with np.load(path) as z:
-        d = dict(z)
+        return state_from_arrays(dict(z), device)
+
+
+def state_from_arrays(d: dict, device=None) -> TrainState:
+    """A state from ``checkpoint_arrays``' dict of numpy arrays."""
     sub = lambda pre: {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)}
     return train_state_from_numpy(
         sub("params."), sub("aux."), sub("opt.mu."), sub("opt.nu."), d["opt.count"],
@@ -447,11 +497,34 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     logs ``instance_occupancy`` against its static instance buffer; the
     port's binning sizes that buffer from ``num_rendered`` on every call, so
     there is no occupancy to log.  ``start_checkpoint`` resumes from a
-    checkpoint of either package, with its slot capacity."""
-    if mesh_spec or camera_batch != 1:
-        raise NotImplementedError("only the single-camera step is ported; "
-                                  "mesh and batched-camera steps are not")
-    device = resolve_device(device)
+    checkpoint of either package, with its slot capacity.
+
+    ``mesh_spec`` "DATAxTILE" (e.g. "4x2") runs the multi-device step of
+    ``parallel/tile_parallel`` on a (camera, tile-row) process mesh, one
+    process per rank (``parallel/mesh.py``); each iteration then takes DATA
+    cameras (gradients averaged: a batch-size departure from the
+    reference's one camera per iteration, as in the JAX package).  Every
+    rank draws the same cameras and data rank d takes the d-th; densify and
+    opacity resets run on every rank on the replicated state.  Rank 0 alone
+    logs, evaluates, writes files and serves the viewer, whose release of
+    each step reaches the other ranks by a broadcast.  At the end the ranks
+    compare state hashes (a difference raises) and rank 0 prints a
+    ``mesh_summary`` JSON line: per rank the step ms, the ms and bytes of
+    its collectives per step and its kernel launches.  The batched-camera
+    step (``camera_batch`` > 1) is not ported."""
+    if camera_batch != 1:
+        raise NotImplementedError("the batched-camera step is not ported")
+    mesh = None
+    if mesh_spec:
+        from gaussianhaircut_torch.parallel import collectives as coll
+        from gaussianhaircut_torch.parallel.mesh import make_mesh2d, parse_mesh_spec
+        from gaussianhaircut_torch.parallel.tile_parallel import dp_tp_train_step
+        mesh = make_mesh2d(*parse_mesh_spec(mesh_spec), device)
+        device = mesh.device
+    else:
+        device = resolve_device(device)
+    main_rank = mesh is None or mesh.rank == 0
+    n_data = mesh.n_data if mesh else 1
     cams = scene.train_cameras
     if not cams:
         raise ValueError("no training cameras")
@@ -470,7 +543,8 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         state = init_train_state(model_state, len(cams), model_cfg.use_barf)
     capacity = state.model.capacity
     raster_cfg = RasterConfig(tile_w=pipe_cfg.tile, tile_h=pipe_cfg.tile)
-    logger = MetricsLogger(model_cfg.model_path) if model_cfg.model_path else None
+    logger = (MetricsLogger(model_cfg.model_path)
+              if model_cfg.model_path and main_rank else None)
     test_cams = getattr(scene, "test_cameras", None) or []
     rng = random.Random(0)
     gen = torch.Generator(device=device)
@@ -478,20 +552,35 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     stack: list[int] = []
     ema = 0.0
     warned_slots = False
+    first_step, launches0 = state.step, dict(cuda_core.launches)
+    t_loop = time.perf_counter()
     for iteration in range(state.step + 1, opt_cfg.iterations + 1):
         sh_deg = min(iteration // 1000, model_cfg.sh_degree)
-        poll_gui(state, model_cfg, raster_cfg, sh_deg, iteration, opt_cfg.iterations)
-        if not stack:
-            stack = list(range(len(cams)))
-            rng.shuffle(stack)
-        cam_idx = stack.pop(rng.randrange(len(stack)))
-        state, metrics = train_step(
-            state, cam_batch, gt, cam_idx, active_sh_degree=sh_deg,
-            width=width, height=height, raster_cfg=raster_cfg, opt_cfg=opt_cfg,
-            trainable_cameras=model_cfg.trainable_cameras,
-            trainable_intrinsics=model_cfg.trainable_intrinsics,
-            use_barf=model_cfg.use_barf,
-            white_background=model_cfg.white_background)
+        if main_rank:
+            poll_gui(state, model_cfg, raster_cfg, sh_deg, iteration, opt_cfg.iterations)
+        if mesh is not None:
+            # the viewer may hold rank 0 above: the others wait for it here
+            go = coll.broadcast(mesh, torch.tensor([iteration], device=device))
+            if int(go) != iteration:
+                raise RuntimeError(f"rank {mesh.rank} at iteration {iteration}, "
+                                   f"rank 0 at {int(go)}")
+        if len(stack) < n_data:
+            # a fresh shuffled epoch in front of the leftovers, so that no
+            # camera of an epoch is dropped when n_data does not divide it
+            new_epoch = list(range(len(cams)))
+            rng.shuffle(new_epoch)
+            stack = new_epoch + stack
+        idxs = [stack.pop(rng.randrange(len(stack))) for _ in range(n_data)]
+        step_kw = dict(active_sh_degree=sh_deg, width=width, height=height,
+                       raster_cfg=raster_cfg, opt_cfg=opt_cfg,
+                       trainable_cameras=model_cfg.trainable_cameras,
+                       trainable_intrinsics=model_cfg.trainable_intrinsics,
+                       use_barf=model_cfg.use_barf,
+                       white_background=model_cfg.white_background)
+        if mesh is None:
+            state, metrics = train_step(state, cam_batch, gt, idxs[0], **step_kw)
+        else:
+            state, metrics = dp_tp_train_step(mesh, **step_kw)(state, cam_batch, gt, idxs)
 
         if iteration < opt_cfg.densify_until_iter:
             if (iteration > opt_cfg.densify_from_iter
@@ -501,7 +590,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 state = densify_step(state, samples, scene.cameras_extent,
                                      opt_cfg=opt_cfg, max_screen_size=size_thr)
                 n_alive = state.model.num_alive()
-                if n_alive >= 0.99 * capacity and not warned_slots:
+                if n_alive >= 0.99 * capacity and not warned_slots and main_rank:
                     warned_slots = True
                     print(f"\n[iter {iteration}] gaussian slots ~exhausted "
                           f"({n_alive}/{capacity}): raise gaussian_capacity "
@@ -519,7 +608,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         if progress_callback:
             progress_callback(iteration, state, metrics)
 
-        if iteration in test_iterations:
+        if iteration in test_iterations and main_rank:
             # training_report (train_gaussians.py:241-293): the test split
             # and a fixed sample of train views, image grids of the first
             # <=5 views, opacity / label histograms, total_points
@@ -547,11 +636,11 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     logger.histogram(iteration, f"scene/{name}_histogram",
                                      fn(state.model.params)[alive].detach().cpu().numpy())
 
-        if iteration in save_iterations and model_cfg.model_path:
+        if iteration in save_iterations and model_cfg.model_path and main_rank:
             gm.save_ply(state.model, os.path.join(
                 model_cfg.model_path, f"point_cloud/iteration_{iteration}",
                 "point_cloud.ply"))
-        if iteration in checkpoint_iterations and model_cfg.model_path:
+        if iteration in checkpoint_iterations and model_cfg.model_path and main_rank:
             save_checkpoint(state, os.path.join(
                 model_cfg.model_path, "checkpoints", f"{iteration}.npz"))
             save_camera_pickles(state, cams, cam_batch, model_cfg.model_path,
@@ -559,4 +648,34 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
     if logger:
         logger.close()
+    if mesh is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        _mesh_summary(mesh, state, state.step - first_step, time.perf_counter() - t_loop,
+                      launches0)
     return state
+
+
+def _mesh_summary(mesh, state: TrainState, steps: int, seconds: float,
+                  launches0: dict) -> None:
+    """Every rank's state hash, step time, collectives and launches,
+    gathered over the world: diverged ranks raise; rank 0 prints them."""
+    from gaussianhaircut_torch.parallel import collectives as coll
+    digest = np.frombuffer(bytes.fromhex(state_digest(state)), np.uint32)
+    steps = max(steps, 1)
+    fwd, bwd = (cuda_core.launches[k] - launches0[k] for k in ("raster_fwd", "raster_bwd"))
+    rec = torch.tensor([seconds * 1e3 / steps, mesh.stats.seconds() * 1e3 / steps,
+                        mesh.stats.bytes / steps, fwd, bwd, *digest.astype(np.float64)],
+                       dtype=torch.float64, device=mesh.device)
+    recs = coll.all_gather(mesh, rec, "world").cpu().numpy()
+    digests = {np.asarray(r[5:], np.uint32).tobytes().hex() for r in recs}
+    if len(digests) != 1:
+        raise RuntimeError(f"mesh ranks diverged: {len(digests)} different states")
+    if mesh.rank == 0:
+        print("mesh_summary " + json.dumps({
+            "mesh": f"{mesh.n_data}x{mesh.n_tile}", "backend": mesh.backend,
+            "device": str(mesh.device), "steps": steps, "state_sha256": digests.pop(),
+            "ranks": [{"rank": i, "step_ms": float(r[0]), "collective_ms_per_step": float(r[1]),
+                       "bytes_per_step": float(r[2]),
+                       "launches": {"raster_fwd": int(r[3]), "raster_bwd": int(r[4])}}
+                      for i, r in enumerate(recs)]}), flush=True)

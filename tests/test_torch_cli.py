@@ -168,10 +168,13 @@ def test_render_cli_matches_jax(runs):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--mesh", "2x1"], "multi-device step is not ported"),
+    # a mesh of two ranks needs two processes: without a launcher the CLI
+    # names the launch command
+    (["--mesh", "2x1"], "torch.distributed.run --nproc_per_node=2"),
 ])
-def test_train_cli_refuses_unported_options(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_train_cli_refuses_unported_options(tmp_path, monkeypatch, flags, match):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match=match):
         t_train.main(["-s", str(tmp_path), "-m", str(tmp_path), "--device", "cpu"] + flags)
 
 

@@ -1,12 +1,13 @@
 """The port stands alone: no module of ``gaussianhaircut_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``, nor a
 package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV);
-a CPU step, the stage-1 CLIs, ``render_video``, ``train_gaussians --gui``
-with a viewer, ``calc_masks``, the strand CLIs, the orchestrator on a toy
-scene, the metrics CLI, the scalp stage, the face glue, the synthetic-scene
-layout and both quality harnesses run with all of those unimportable; the
-entry points never pick the CPU on their own; and the kernel wrappers keep
-CUDA tensors away from the plain versions."""
+a CPU step, the 1x1 mesh step of ``parallel/``, the stage-1 CLIs,
+``render_video``, ``train_gaussians --gui`` with a viewer, ``calc_masks``,
+the strand CLIs, the orchestrator on a toy scene, the metrics CLI, the
+scalp stage, the face glue, the synthetic-scene layout and both quality
+harnesses run with all of those unimportable; the entry points never pick
+the CPU on their own; and the kernel wrappers keep CUDA tensors away from
+the plain versions."""
 import ast
 import os
 import subprocess
@@ -87,6 +88,11 @@ _SCRIPT = textwrap.dedent("""
                  PipelineConfig(gaussian_capacity=64), scene, device="cpu",
                  progress_callback=lambda it, st, m: losses.append(float(m["total"])))
     assert len(losses) == 1 and math.isfinite(losses[0]), losses
+    # the mesh step of parallel/ (a 1x1 mesh needs no launcher)
+    state = stage1.train(ModelConfig(sh_degree=1), OptimizationConfig(iterations=1),
+                         PipelineConfig(gaussian_capacity=64), scene, device="cpu",
+                         mesh_spec="1x1")
+    assert state.step == 1
 
     # the stage-1 CLIs on a one-view scene written to disk
     from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
