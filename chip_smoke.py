@@ -41,7 +41,10 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
 9. mesh         -- the multi-device step (``parallel/``) on the cli phase's
                    scene and iteration-30 checkpoint, every rank on this
                    card: (a) a 1x1 mesh under NCCL in this process, one
-                   step equal to ``train_step`` bit for bit; (b) two ranks
+                   step equal to ``train_step`` bit for bit (and
+                   ``train_step`` timed), and the 1x2, 1x4 and 1x8 row
+                   windows of camera 0 equal to its render's rows bit for
+                   bit (the kernels' grid origin at row0 > 0); (b) two ranks
                    under gloo started by torch.distributed.run
                    (``tools/mesh_check``): a 1x2 step (windows of 288
                    rows) within tests/test_parallel.py's tolerances of the
@@ -199,7 +202,6 @@ ops = {
     "all_reduce": lambda: dist.all_reduce(torch.full((8,), r + 1.0, device=dev)),
     "all_reduce_max_int64": lambda: dist.all_reduce(torch.full((8,), r, device=dev),
                                                     op=dist.ReduceOp.MAX),
-    "broadcast": lambda: dist.broadcast(torch.full((8,), r, device=dev), 0),
     "all_gather": lambda: dist.all_gather([torch.zeros(8, device=dev) for _ in range(2)],
                                           torch.full((8,), r + 1.0, device=dev)),
 }
@@ -946,8 +948,9 @@ def mesh_phase(torch, root):
     from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.parallel import tile_parallel
     from gaussianhaircut_torch.parallel import mesh as mesh_mod
+    from gaussianhaircut_torch.render.renderer import default_background, render
     from gaussianhaircut_torch.scene import ply
-    from gaussianhaircut_torch.scene.cameras import CameraBatch
+    from gaussianhaircut_torch.scene.cameras import CameraBatch, camera_geom
     from gaussianhaircut_torch.scene.dataset import load_scene
     from gaussianhaircut_torch.tools import mesh_check
     from gaussianhaircut_torch.tools.profile_fixed import nvidia_smi
@@ -968,7 +971,7 @@ def mesh_phase(torch, root):
     del scene
     batch = os.path.join(work, "batch.npz")
     mesh_check.save_batch(batch, cb, gt)
-    kw = mesh_check.step_kwargs(WIDTH, HEIGHT, 3, 32, 0.1)
+    kw = mesh_check.step_kwargs(WIDTH, HEIGHT)
     state = stage1.load_checkpoint(ckpt, dev)
     out = {"phase": "mesh", "nvidia_smi": nvidia_smi(), "runs": {}}
     launches = {"raster_fwd": {}, "raster_bwd": {}}
@@ -992,15 +995,42 @@ def mesh_phase(torch, root):
             "mesh 1x1: metrics differ from train_step's")
     require(launches["raster_fwd"]["1x1"] == 1 and launches["raster_bwd"]["1x1"] == 1,
             f"mesh 1x1: launched {launches}")
+    # the single-card step from the same state and camera, timed as
+    # mesh_check times the mesh steps (host clock around a synchronized step)
+    single_ms = []
+    for _ in range(mesh_check.REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage1.train_step(state, cb, gt, 0, **kw)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
     out["runs"]["1x1"] = {"backend": backend, "equal_to_train_step": True,
-                          "num_rendered": one_m["num_rendered"]}
+                          "num_rendered": one_m["num_rendered"],
+                          "train_step_ms": statistics.median(single_ms)}
+    # the kernels' row window (row0 > 0) on the card: the 1x2, 1x4 and 1x8
+    # windows of camera 0 are the single render's rows bit for bit
+    cam = camera_geom(cb.colmap_transform[0], cb.fovx[0], cb.fovy[0], WIDTH, HEIGHT,
+                      state.cam_res, 0, use_barf=True)
+    bg = default_background(False, dev)
+    params, alive = state.model.params, state.model.aux.alive
+    with torch.no_grad():
+        whole = render(params, alive, 3, cam, bg, kw["raster_cfg"])["render10"]
+        for n_tile in (2, 4, 8):
+            crop_h, windows = tile_parallel.row_windows(HEIGHT, 32, n_tile)
+            for y0, rows in windows:
+                win = tile_parallel.render_window(params, alive, 3, cam, bg, kw["raster_cfg"],
+                                                  y0, rows, crop_h, HEIGHT)[0]
+                require(torch.equal(win[:, :rows], whole[:, y0:y0 + rows]),
+                        f"mesh: the 1x{n_tile} window at row {y0} differs from the render")
+    out["windows_equal_render"] = [2, 4, 8]
+    del whole, win
 
     # (b) two ranks under gloo: 1x2 against the single-card step, 2x1
     # against both cameras' gradients averaged here
     steps_dir = os.path.join(work, "steps")
     _torchrun(2, ["-m", "gaussianhaircut_torch.tools.mesh_check", "--batch", batch,
                   "--checkpoint", ckpt, "--mesh", "1x2:0", "--mesh", "2x1:0,1",
-                  "--out", steps_dir, "--device", "cuda:0", "--repeats", "5"], timeout=300)
+                  "--out", steps_dir, "--device", "cuda:0"], timeout=300)
     oracle, oracle_m = averaged_oracle(torch, state, cb, gt, [0, 1], kw)
     for spec, want_state, want_m in (("1x2", ref, ref_m), ("2x1", oracle, oracle_m)):
         ranks = [dict(np.load(os.path.join(steps_dir, spec, f"rank{r}.npz"))) for r in range(2)]
@@ -1025,23 +1055,30 @@ def mesh_phase(torch, root):
     del oracle, ref, one
 
     # (c) the CLI on a 2x2 mesh, four ranks, from an empty build directory
+    # (the libraries this process loaded are set aside and put back, also
+    # when the run fails, so that a later run starts from the same tree)
     aside = cuda_core.BUILD_DIR + ".before_mesh"
+    shutil.rmtree(aside, ignore_errors=True)
     os.rename(cuda_core.BUILD_DIR, aside)
     model = os.path.join(work, "model")
     t0 = time.perf_counter()
-    stdout = _torchrun(4, [
-        "-m", "gaussianhaircut_torch.cli.train_gaussians", "--mesh", "2x2", "--device", "cuda:0",
-        "-s", src, "-m", model, "--sh_degree", "3", "--lambda_dorient", "0.1", "--tile", "32",
-        "--iterations", str(MESH_ITERS), "--densify_from_iter", "10",
-        "--densification_interval", "10", "--densify_until_iter", str(MESH_DENSIFY + 1),
-        "--test_iterations", str(MESH_ITERS), "--save_iterations", str(MESH_ITERS),
-        "--checkpoint_iterations", str(MESH_ITERS)], timeout=400)
-    cli_s = time.perf_counter() - t0
-    built = sorted(os.listdir(cuda_core.BUILD_DIR))
-    require(sorted(built) == sorted(os.path.basename(cuda_core._lib_path(n))
-                                    for n in cuda_core.SOURCES),
+    try:
+        stdout = _torchrun(4, [
+            "-m", "gaussianhaircut_torch.cli.train_gaussians", "--mesh", "2x2",
+            "--device", "cuda:0", "-s", src, "-m", model, "--sh_degree", "3",
+            "--lambda_dorient", "0.1", "--tile", "32", "--iterations", str(MESH_ITERS),
+            "--densify_from_iter", "10", "--densification_interval", "10",
+            "--densify_until_iter", str(MESH_DENSIFY + 1),
+            "--test_iterations", str(MESH_ITERS), "--save_iterations", str(MESH_ITERS),
+            "--checkpoint_iterations", str(MESH_ITERS)], timeout=400)
+        cli_s = time.perf_counter() - t0
+        built = sorted(os.listdir(cuda_core.BUILD_DIR))
+    finally:
+        shutil.rmtree(cuda_core.BUILD_DIR, ignore_errors=True)
+        os.rename(aside, cuda_core.BUILD_DIR)
+    require(built == sorted(os.path.basename(cuda_core._lib_path(n))
+                            for n in cuda_core.SOURCES),
             f"mesh: the ranks' build left {built}")
-    shutil.rmtree(aside)
     summary = [ln for ln in stdout.splitlines() if ln.startswith("mesh_summary ")]
     require(len(summary) == 1, f"mesh 2x2: {len(summary)} summary lines")
     summary = json.loads(summary[0].split(" ", 1)[1])

@@ -93,7 +93,7 @@ raster_bwd_kernel(const float* __restrict__ payload,
                   const float* __restrict__ tile_buf,
                   const float* __restrict__ gbuf,
                   float* __restrict__ dpay,
-                  int grid_x, int tile_w, int ch) {
+                  int grid_x, int tile_w, int ch, int row0) {
   extern __shared__ float4 smem4[];
   const int nwarps = blockDim.x / 32;
   float4* s_inst = smem4;                                         // [ch][4]
@@ -105,7 +105,7 @@ raster_bwd_kernel(const float* __restrict__ payload,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tile_h = blockDim.x / tile_w;
-  const TileOrigin o = tile_origin(tile, grid_x, tile_w, tile_h);
+  const TileOrigin o = tile_origin(tile, grid_x, tile_w, tile_h, row0);
   const Pixel p = footprint_pixel(warp, lane, tile_w);
   const float px = static_cast<float>(o.x0 + p.x);
   const float py = static_cast<float>(o.y0 + p.y);
@@ -240,7 +240,7 @@ extern "C" int raster_bwd(const float* payload, const int* chunk_start,
                           const int* nchunks, const int* tile_order,
                           const float* tile_buf, const float* gbuf, float* dpay,
                           int num_tiles, int grid_x, int tile_w, int tile_h, int ch,
-                          void* stream) {
+                          int row0, void* stream) {
   const int threads = tile_w * tile_h;
   const size_t smem = smem_bytes(threads, ch);
   cudaError_t err = cudaFuncSetAttribute(
@@ -251,7 +251,7 @@ extern "C" int raster_bwd(const float* payload, const int* chunk_start,
     raster_bwd_kernel<<<num_tiles, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         payload, chunk_start, nchunks, tile_order, tile_buf, gbuf, dpay, grid_x,
-        tile_w, ch);
+        tile_w, ch, row0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -128,14 +128,17 @@ __device__ __forceinline__ unsigned warp_mask(float gx, float gy, float a, float
   return mask;
 }
 
-// Where a tile starts, in pixels.
+// Where a tile starts, in pixels of the image.  A grid that covers a window
+// of the image's rows starts at row0 (a whole number of tile rows): the
+// tile-row mesh step renders such windows, and the pixel coordinates stay
+// the whole image's, so a window's tiles are the whole render's bit for bit.
 struct TileOrigin {
   int x0, y0;
 };
 
 __device__ __forceinline__ TileOrigin tile_origin(int tile, int grid_x, int tile_w,
-                                                  int tile_h) {
-  return {(tile % grid_x) * tile_w, (tile / grid_x) * tile_h};
+                                                  int tile_h, int row0 = 0) {
+  return {(tile % grid_x) * tile_w, row0 + (tile / grid_x) * tile_h};
 }
 
 // Stage one chunk into shared memory, instance-major: instance j as 16

@@ -53,18 +53,16 @@ class _Rasterize(torch.autograd.Function):
     def forward(ctx, ndc, conic, colors, opacity, depth, valid, bg, width,
                 height, full_height, row0, cfg, info):
         mean_pix = ndc_xy_to_pixel(ndc, width, full_height)
-        if row0:
-            mean_pix = mean_pix - torch.tensor([0.0, row0], device=mean_pix.device)
         pre = C.preprocess(mean_pix, conic, depth, valid, width, height, cfg,
-                           opacity=opacity)
+                           opacity=opacity, row0=row0)
         binned = C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
                                  width, height, cfg)
         tile_buf = cuda_core.raster_fwd(binned.payload, binned.chunk_start, binned.nchunks,
-                       width, height, cfg)
+                                        width, height, cfg, row0)
         image, t_final = C.assemble_image(tile_buf, bg, width, height, cfg)
         info["num_rendered"] = binned.num_rendered
         ctx.binned = binned
-        ctx.dims = (width, height, full_height, cfg)
+        ctx.dims = (width, height, full_height, row0, cfg)
         ctx.save_for_backward(tile_buf, bg, t_final)
         radii = pre.radius.to(torch.int32)
         visibility = pre.radius > 0
@@ -74,11 +72,11 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_img, g_t, _g_radii, _g_vis):
         tile_buf, bg, t_final = ctx.saved_tensors
-        width, height, full_height, cfg = ctx.dims
+        width, height, full_height, row0, cfg = ctx.dims
         b = ctx.binned
         gbuf = C.disassemble_cotangent(g_img, g_t, bg, width, height, cfg)
         dpay = cuda_core.raster_bwd(b.payload, b.chunk_start, b.nchunks,
-                                    tile_buf, gbuf, width, height, cfg)
+                                    tile_buf, gbuf, width, height, cfg, row0)
         seg = segment_sum(dpay, b)
         d_ndc = torch.stack([seg[:, C.F_GX] * (width * 0.5),
                              seg[:, C.F_GY] * (full_height * 0.5),
@@ -105,11 +103,14 @@ def rasterize(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tensor,
     ``full_height`` and ``row0`` are the row-window hook of the tile-row
     mesh step: NDC maps to pixels (and the gradient back) with the full
     image's height, and the grid and the kernels cover rows [row0, row0 +
-    height) of it.  The JAX package shifts ndc_y by -2*row0/full_height
-    instead; subtracting the whole-tile offset from the pixel means is
-    exact for means within [row0 / 2, 2 * row0] (Sterbenz), so a window's
-    pixels are the full render's bit for bit, alpha tests and early stops
-    included.
+    height) of it (``row0`` a whole number of tile rows).  The JAX package
+    shifts ndc_y by -2*row0/full_height instead.  Here the means stay in
+    the image's pixels and the grid's origin moves: binning takes the
+    image's tile rect shifted by row0's tile rows and the kernels add row0
+    to each tile's pixel rows, so every tile of a window gets the image's
+    instances, in the image's order, against the image's pixel
+    coordinates.  A window's pixels are the full render's bit for bit
+    (alpha tests and early stops included) wherever the Gaussians lie.
     Returns render [10, H, W], final_T [H, W], radii [P] int32,
     visibility [P] bool and num_rendered (a Python int)."""
     cfg = cfg or C.RasterConfig()

@@ -90,15 +90,24 @@ def cov2d_from_conic(conic: torch.Tensor):
 
 def preprocess(mean_pix: torch.Tensor, conic: torch.Tensor, depth: torch.Tensor,
                valid_in: torch.Tensor, width: int, height: int,
-               cfg: RasterConfig, opacity: torch.Tensor | None = None
-               ) -> Preprocessed:
+               cfg: RasterConfig, opacity: torch.Tensor | None = None,
+               row0: int = 0) -> Preprocessed:
     """Per-Gaussian culling, radius and tile rect (forward.cu:155-282).
+
+    With ``row0`` (a whole number of tile rows) the grid covers the rows
+    [row0, row0 + height) of a taller image and ``mean_pix`` is in the
+    image's pixels: the rect is the image grid's, shifted by row0's tile
+    rows and clamped to the window, so each of the window's tiles gets the
+    image's instances for that tile.
 
     With ``opacity``, the binned rect shrinks to the exact-skip radius
     sigma*sqrt(2 ln(255 op)), outside which alpha < 1/255 everywhere (both
     kernels skip such pixels, so dropping the instances is exact).  The
     reported ``radius`` keeps the reference's 3-sigma value."""
     gx_grid, gy_grid = cfg.grid(width, height)
+    if row0 % cfg.tile_h:
+        raise ValueError(f"row0 {row0} is not a whole number of {cfg.tile_h}-row tiles")
+    t0 = row0 // cfg.tile_h
     cov2d, det_ok = cov2d_from_conic(conic)
     det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
     mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
@@ -112,9 +121,10 @@ def preprocess(mean_pix: torch.Tensor, conic: torch.Tensor, depth: torch.Tensor,
     def rect(r):
         # float -> int casts truncate toward zero, like the CUDA getRect
         rmin_x = torch.clamp(((px - r) / cfg.tile_w).to(torch.int32), 0, gx_grid)
-        rmin_y = torch.clamp(((py - r) / cfg.tile_h).to(torch.int32), 0, gy_grid)
+        rmin_y = torch.clamp(((py - r) / cfg.tile_h).to(torch.int32) - t0, 0, gy_grid)
         rmax_x = torch.clamp(((px + r + cfg.tile_w - 1) / cfg.tile_w).to(torch.int32), 0, gx_grid)
-        rmax_y = torch.clamp(((py + r + cfg.tile_h - 1) / cfg.tile_h).to(torch.int32), 0, gy_grid)
+        rmax_y = torch.clamp(((py + r + cfg.tile_h - 1) / cfg.tile_h).to(torch.int32) - t0,
+                             0, gy_grid)
         return tuple(v.long() for v in (rmin_x, rmin_y, rmax_x, rmax_y))
 
     rect3 = rect(radius)
@@ -217,13 +227,14 @@ def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
                   num_rendered=total, num_tiles=num_tiles)
 
 
-def pixel_coords(num_tiles: int, width: int, cfg: RasterConfig, device):
-    """(px, py) [T, PIX] float pixel coordinates of every tile pixel."""
+def pixel_coords(num_tiles: int, width: int, cfg: RasterConfig, device, row0: int = 0):
+    """(px, py) [T, PIX] float pixel coordinates of every tile pixel, of a
+    grid that covers the image's rows from ``row0`` on."""
     gx_grid, _ = cfg.grid(width, 1)
     t = torch.arange(num_tiles, device=device)[:, None]
     i = torch.arange(cfg.tile_pix, device=device)[None, :]
     px = (t % gx_grid) * cfg.tile_w + i % cfg.tile_w
-    py = (t // gx_grid) * cfg.tile_h + i // cfg.tile_w
+    py = row0 + (t // gx_grid) * cfg.tile_h + i // cfg.tile_w
     return px.to(torch.float32), py.to(torch.float32)
 
 

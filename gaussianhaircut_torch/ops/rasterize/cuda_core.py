@@ -20,6 +20,11 @@ interface (the compilers run at once), at first use, into
 libraries are loaded with ``ctypes``.  Several processes may build at once
 (each writes its own temporary file and renames it into place).
 
+A grid may cover a window of an image's rows, from ``row0`` (a whole
+number of tile rows) on: the pixel coordinates stay the image's, so a
+window's tiles are the whole image's render bit for bit (the tile-row mesh
+step, ``parallel/tile_parallel.py``).
+
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain PyTorch version from ``plain_core.py``.  Each launch adds one to
 ``launches[name]``, keyed by the C entry point it calls; nothing else
@@ -47,9 +52,9 @@ SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
 # takes the stream last and returns cudaGetLastError()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    "raster_fwd": ("raster_fwd", [_P] * 5 + [_I] * 5),
-    "raster_warp_masks": ("raster_fwd", [_P] * 4 + [_I] * 5),
-    "raster_bwd": ("raster_bwd", [_P] * 7 + [_I] * 5),
+    "raster_fwd": ("raster_fwd", [_P] * 5 + [_I] * 6),
+    "raster_warp_masks": ("raster_fwd", [_P] * 4 + [_I] * 6),
+    "raster_bwd": ("raster_bwd", [_P] * 7 + [_I] * 6),
     "raster_probe": ("raster_probe", [_P] * 5 + [_I] * 5),
     "raster_probe_grid_only": ("raster_probe", [_P] * 5 + [_I] * 5),
 }
@@ -175,6 +180,12 @@ def _grid_x(num_tiles: int, width: int, height: int, cfg) -> int:
     return gx
 
 
+def _row0(row0: int, cfg) -> int:
+    if row0 < 0 or row0 % cfg.tile_h:
+        raise ValueError(f"row0 {row0} is not a whole number of {cfg.tile_h}-row tiles")
+    return row0
+
+
 def _launch(entry: str, *args) -> None:
     lib_name = ENTRY_POINTS[entry][0]
     if lib_name not in _libs:
@@ -195,11 +206,11 @@ def heavy_first(nchunks: torch.Tensor) -> torch.Tensor:
 
 def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, width: int, height: int,
-               cfg: C.RasterConfig) -> torch.Tensor:
+               cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
     """Compositing forward -> tile_buf [T, PIX, 16]."""
     if not payload.is_cuda:
         return plain_core.raster_fwd_plain(payload, chunk_start, nchunks,
-                                           width, height, cfg)
+                                           width, height, cfg, row0=row0)
     _check_layout(payload, chunk_start, nchunks, cfg)
     num_tiles = chunk_start.shape[0]
     gx = _grid_x(num_tiles, width, height, cfg)
@@ -208,19 +219,20 @@ def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
     tile_order = heavy_first(nchunks)
     _launch("raster_fwd", payload.data_ptr(), chunk_start.data_ptr(),
             nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles,
-            gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
+            gx, cfg.tile_w, cfg.tile_h, cfg.chunk, _row0(row0, cfg),
             torch.cuda.current_stream(payload.device).cuda_stream)
     return tile_buf
 
 
 def warp_masks(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, width: int, height: int,
-               cfg: C.RasterConfig) -> torch.Tensor:
+               cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
     """The per-warp cull as the kernels' staging computes it -> masks
     [TC, CH] int64 in [0, 2^32) (0 for chunks in no tile's range): the
     card's side of ``plain_core.warp_masks_plain``."""
     if not payload.is_cuda:
-        return plain_core.warp_masks_plain(payload, chunk_start, nchunks, width, cfg)
+        return plain_core.warp_masks_plain(payload, chunk_start, nchunks, width, cfg,
+                                           row0=row0)
     _check_layout(payload, chunk_start, nchunks, cfg)
     num_tiles = chunk_start.shape[0]
     gx = _grid_x(num_tiles, width, height, cfg)
@@ -228,19 +240,21 @@ def warp_masks(payload: torch.Tensor, chunk_start: torch.Tensor,
                         device=payload.device)
     _launch("raster_warp_masks", payload.data_ptr(), chunk_start.data_ptr(),
             nchunks.data_ptr(), masks.data_ptr(), num_tiles, gx, cfg.tile_w,
-            cfg.tile_h, cfg.chunk, torch.cuda.current_stream(payload.device).cuda_stream)
+            cfg.tile_h, cfg.chunk, _row0(row0, cfg),
+            torch.cuda.current_stream(payload.device).cuda_stream)
     return masks.long() & 0xFFFFFFFF
 
 
 def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, tile_buf: torch.Tensor,
                gbuf: torch.Tensor, width: int, height: int,
-               cfg: C.RasterConfig) -> torch.Tensor:
+               cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
     """Compositing backward -> dpay [TC, 16, CH] (zero where no tile
     reaches)."""
     if not payload.is_cuda:
         return plain_core.raster_bwd_plain(payload, chunk_start, nchunks,
-                                           tile_buf, gbuf, width, height, cfg)
+                                           tile_buf, gbuf, width, height, cfg,
+                                           row0=row0)
     _check_layout(payload, chunk_start, nchunks, cfg)
     num_tiles = chunk_start.shape[0]
     gx = _grid_x(num_tiles, width, height, cfg)
@@ -253,7 +267,7 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
     _launch("raster_bwd", payload.data_ptr(), chunk_start.data_ptr(),
             nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
             dpay.data_ptr(), num_tiles, gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
-            torch.cuda.current_stream(payload.device).cuda_stream)
+            _row0(row0, cfg), torch.cuda.current_stream(payload.device).cuda_stream)
     return dpay
 
 

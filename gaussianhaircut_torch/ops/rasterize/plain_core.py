@@ -77,16 +77,17 @@ def _instance(pay, j, px, py, t, done):
 def raster_fwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
                      nchunks: torch.Tensor, width: int, height: int,
                      cfg: C.RasterConfig, stats: dict | None = None,
-                     masks: torch.Tensor | None = None) -> torch.Tensor:
+                     masks: torch.Tensor | None = None, row0: int = 0) -> torch.Tensor:
     """Composite each tile's depth-sorted instances front to back ->
     tile_buf [T, PIX, 16].  With ``stats``, counts the (pixel, instance)
     pairs this input needs: ``visited`` (evaluated before the pixel stops)
     and ``contrib`` (blended); given the per-warp cull ``masks`` [TC, CH]
     (``warp_masks_plain``), also ``kept``: the visited pairs whose warp's
-    bit is set, the pairs the kernels must evaluate."""
+    bit is set, the pairs the kernels must evaluate.  The grid covers the
+    image's rows from ``row0`` on."""
     num_tiles = chunk_start.shape[0]
     dev = payload.device
-    px, py = C.pixel_coords(num_tiles, width, cfg, dev)
+    px, py = C.pixel_coords(num_tiles, width, cfg, dev, row0)
     acc = torch.zeros((num_tiles, cfg.tile_pix, C.NUM_CHANNELS), device=dev)
     walk = _Walk(num_tiles, cfg.tile_pix, dev)
     cs, nc = chunk_start.long(), nchunks.long()
@@ -143,7 +144,7 @@ def raster_probe_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
 def raster_bwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
                      nchunks: torch.Tensor, tile_buf: torch.Tensor,
                      gbuf: torch.Tensor, width: int, height: int,
-                     cfg: C.RasterConfig) -> torch.Tensor:
+                     cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
     """Per-instance gradients summed over each tile's pixels -> dpay
     [TC, 16, CH] (zero for chunks not reached).
 
@@ -154,7 +155,7 @@ def raster_bwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
     (backward.cu:502-558)."""
     num_tiles = chunk_start.shape[0]
     dev = payload.device
-    px, py = C.pixel_coords(num_tiles, width, cfg, dev)
+    px, py = C.pixel_coords(num_tiles, width, cfg, dev, row0)
     total = torch.sum(gbuf * tile_buf, dim=-1)                    # [T, PIX]
     prefix = torch.zeros((num_tiles, cfg.tile_pix), device=dev)
     walk = _Walk(num_tiles, cfg.tile_pix, dev)
@@ -205,7 +206,7 @@ def warp_of_pixel(cfg: C.RasterConfig) -> torch.Tensor:
 
 def warp_masks_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
                      nchunks: torch.Tensor, width: int,
-                     cfg: C.RasterConfig) -> torch.Tensor:
+                     cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
     """The kernels' per-warp cull -> masks [TC, CH] int64 (bit w set: warp
     w walks the instance; 0 for chunks in no tile's range).  The same
     float64 operations in the same order as ``warp_mask`` in
@@ -223,7 +224,7 @@ def warp_masks_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
     chunks = first + torch.arange(tile_of.shape[0], device=dev)
     geo = payload[chunks, :6]                                   # [n, 6, CH] f32
     x0 = ((tile_of % gx_grid) * cfg.tile_w)[:, None]
-    y0 = ((tile_of // gx_grid) * cfg.tile_h)[:, None]
+    y0 = (row0 + (tile_of // gx_grid) * cfg.tile_h)[:, None]
     X, Y, A, B, Cc, O = (geo[:, r].double() for r in range(6))
     tame = ((X.abs() < CULL_MAX_POS) & (Y.abs() < CULL_MAX_POS)
             & (A.abs() < CULL_MAX_VAL) & (B.abs() < CULL_MAX_VAL)

@@ -1,7 +1,6 @@
 """Every collective of the multi-device stage-1 step, in one place: sums and
 maxima over the ``data`` axis, the ``tile`` axis or the whole world, the
-row gather of the tile-row windows, a broadcast and a gather of small
-records.
+row gather of the tile-row windows and a gather of small records.
 
 Explicit collectives, not ``DistributedDataParallel``: DDP averages over the
 whole world, which gives 1/(n_data * n_tile) where the JAX package takes
@@ -10,7 +9,7 @@ the camera rows or the densify statistics.  Callers flatten what they reduce
 into one buffer per axis and step (``flatten`` / ``unflatten``).
 
 gloo takes CUDA tensors in every collective used here (all_reduce, with
-sum and with max on int64, broadcast and all_gather: checked on the H100
+sum and with max on int64, and all_gather: checked on the H100
 by ``chip_smoke.py``'s mesh phase, which fails if one refuses them), so
 ranks that share a card hand gloo their tensors as they are.  On a mesh
 without a process group (1x1 without a launcher) every collective is the
@@ -67,14 +66,6 @@ def all_gather(mesh: Mesh, tensor: torch.Tensor, axis: str) -> torch.Tensor:
     _run(mesh, out, lambda: dist.all_gather(list(out.unbind(0)), tensor.contiguous(),
                                             group=group))
     return out
-
-
-def broadcast(mesh: Mesh, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """In-place broadcast of ``tensor`` from rank ``src`` to the world."""
-    group = mesh.group("world")
-    if group is not None:
-        _run(mesh, tensor, lambda: dist.broadcast(tensor, src, group=group))
-    return tensor
 
 
 class _GatherRows(torch.autograd.Function):

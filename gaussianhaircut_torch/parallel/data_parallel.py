@@ -16,11 +16,9 @@ import torch
 
 from gaussianhaircut_torch.config import OptimizationConfig
 from gaussianhaircut_torch.models.gaussian_model import GaussianAux, GaussianParams
-from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.parallel import collectives as coll
 from gaussianhaircut_torch.parallel.mesh import Mesh
-from gaussianhaircut_torch.render.renderer import default_background, render
-from gaussianhaircut_torch.scene.cameras import CameraResiduals, camera_geom
+from gaussianhaircut_torch.scene.cameras import CameraResiduals
 from gaussianhaircut_torch.train import stage1
 
 
@@ -69,38 +67,16 @@ def reduce_and_update(mesh: Mesh, state: stage1.TrainState, gparams: GaussianPar
     return new_state, metrics
 
 
-def dp_train_step(mesh: Mesh, *, active_sh_degree: int, width: int, height: int,
-                  raster_cfg: RasterConfig, opt_cfg: OptimizationConfig,
-                  trainable_cameras: bool = True, trainable_intrinsics: bool = True,
-                  use_barf: bool = True, white_background: bool = False):
-    """The camera data-parallel step on an ``n x 1`` mesh.
+def dp_train_step(mesh: Mesh, **step_kw):
+    """The camera data-parallel step on an ``n x 1`` mesh: the tile-row
+    step's camera-only case (one window of the whole image per camera is
+    ``render``), so it is ``tile_parallel.dp_tp_train_step``.
 
     Returns ``step(state, cam_batch, gt, cam_idxs) -> (state, metrics)``:
     ``cam_idxs`` holds one camera per data rank, the same list on every
     rank, and data rank d renders ``cam_idxs[d]``."""
+    # imported here: tile_parallel imports this module's reduce_and_update
+    from gaussianhaircut_torch.parallel.tile_parallel import dp_tp_train_step
     if mesh.n_tile != 1:
         raise ValueError(f"dp_train_step takes an n x 1 mesh, not {mesh.n_data}x{mesh.n_tile}")
-
-    def step(state, cam_batch, gt, cam_idxs):
-        idx = int(cam_idxs[mesh.data_index])
-        bg = default_background(white_background, mesh.device)
-        alive = state.model.aux.alive
-
-        def forward(params, cam_res):
-            cam = camera_geom(cam_batch.colmap_transform[idx], cam_batch.fovx[idx],
-                              cam_batch.fovy[idx], width, height, cam_res, idx,
-                              use_barf=use_barf, trainable_cameras=trainable_cameras,
-                              trainable_intrinsics=trainable_intrinsics)
-            out = render(params, alive, active_sh_degree, cam, bg, raster_cfg)
-            loss, parts = stage1.compute_losses(out, gt.image[idx], gt.mask[idx],
-                                                gt.orient_angle[idx], gt.orient_conf[idx],
-                                                opt_cfg)
-            return loss, (parts, out)
-
-        gparams, gcam, (parts, out) = stage1.step_grads(state, forward)
-        return reduce_and_update(
-            mesh, state, gparams, gcam, out["visibility_filter"], out["radii"], parts,
-            out["num_rendered"], cam_idxs, opt_cfg=opt_cfg,
-            trainable_cameras=trainable_cameras, trainable_intrinsics=trainable_intrinsics)
-
-    return step
+    return dp_tp_train_step(mesh, **step_kw)

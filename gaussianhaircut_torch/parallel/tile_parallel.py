@@ -18,8 +18,9 @@ Two differences from the JAX package, both to make a window the
 single-device render's rows bit for bit (the ulps of a shifted NDC move
 alpha tests and early stops, and Adam turns a gradient that appears or
 vanishes into a step of its own):
-- the window's rows are offset in pixels (``rasterize``'s ``row0``), not by
-  an NDC shift of -2*y0/H;
+- the window keeps the image's pixel coordinates and its grid starts at
+  row y0 (``rasterize``'s ``row0``, which binning and both kernels take),
+  where JAX shifts NDC by -2*y0/H;
 - the last window stops at the image's last tile row.  JAX renders the
   whole ``crop_h`` there, rows past the image included, and counts a
   Gaussian seen only in those rows as visible; here the windows partition

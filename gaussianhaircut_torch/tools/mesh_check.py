@@ -4,7 +4,7 @@ single-device oracle.
     python -m torch.distributed.run --standalone --nproc_per_node=N \\
         -m gaussianhaircut_torch.tools.mesh_check --batch BATCH.npz \\
         --checkpoint STATE.npz --mesh 1x2:0 --mesh 2x1:0,1 --out DIR \\
-        [--device cuda:0] [--repeats 5] [--sh_degree 3] [--tile 32]
+        [--device cuda:0]
 
 For each ``--mesh SPEC:CAMS`` (every spec of N ranks) it runs one
 ``dp_tp_train_step`` from the checkpoint's state on cameras CAMS (the
@@ -12,8 +12,10 @@ cameras and ground truth of ``save_batch``'s file), with the launch counts
 set to 0 just before it, and writes each rank's new state
 (``DIR/SPEC/rank<r>.npz``, ``stage1.checkpoint_arrays``) and record
 (``rank<r>.json``: metrics, the step's kernel launches, its collectives'
-calls and bytes, the backend), then times ``--repeats`` more steps from the
-same state (median step ms and collective ms per step).
+calls and bytes, the backend), then times REPEATS more steps from the same
+state (median step ms and collective ms per step).  The step runs at the
+bench configuration's settings (SH degree 3, 32x32 tiles, lambda_dorient
+0.1) and the batch's image size.
 
 ``run_jobs`` is the same per-rank body for ``torch.multiprocessing`` spawn
 with a FileStore rendezvous, for the CPU tests: a "step" job as above, or a
@@ -43,6 +45,7 @@ from gaussianhaircut_torch.parallel.mesh import init_distributed, make_mesh2d, p
 from gaussianhaircut_torch.scene.cameras import CameraBatch
 from gaussianhaircut_torch.train import stage1
 
+SH_DEGREE, TILE, LAMBDA_DORIENT, REPEATS = 3, 32, 0.1, 5
 BATCH_KEYS = ("colmap_transform", "fovx", "fovy", "image", "mask", "orient_angle",
               "orient_conf")
 
@@ -59,13 +62,12 @@ def load_batch(d: dict, device) -> tuple[CameraBatch, stage1.GtBatch]:
             stage1.GtBatch(t["image"], t["mask"], t["orient_angle"], t["orient_conf"]))
 
 
-def step_kwargs(width: int, height: int, sh_degree: int, tile: int,
-                lambda_dorient: float) -> dict:
-    """The step's keywords: the model's default flags (BARF, trainable
-    cameras and intrinsics, black background)."""
-    return dict(active_sh_degree=sh_degree, width=width, height=height,
-                raster_cfg=RasterConfig(tile_w=tile, tile_h=tile),
-                opt_cfg=OptimizationConfig(lambda_dorient=lambda_dorient),
+def step_kwargs(width: int, height: int) -> dict:
+    """The step's keywords at the bench settings, with the model's default
+    flags (BARF, trainable cameras and intrinsics, black background)."""
+    return dict(active_sh_degree=SH_DEGREE, width=width, height=height,
+                raster_cfg=RasterConfig(tile_w=TILE, tile_h=TILE),
+                opt_cfg=OptimizationConfig(lambda_dorient=LAMBDA_DORIENT),
                 trainable_cameras=True, trainable_intrinsics=True, use_barf=True,
                 white_background=False)
 
@@ -88,13 +90,13 @@ def one_step(mesh, state, cam_batch, gt, cams, step_kw, make_step=None):
     return new_state, rec
 
 
-def time_steps(mesh, state, cam_batch, gt, cams, step_kw, repeats: int) -> dict:
-    """Median ms of ``repeats`` steps from the same state, and of their
+def time_steps(mesh, state, cam_batch, gt, cams, step_kw) -> dict:
+    """Median ms of REPEATS steps from the same state, and of their
     collectives (host clock around a synchronized step)."""
     step_ms, comm_ms = [], []
     step = tile_parallel.dp_tp_train_step(mesh, **step_kw)
     sync = torch.cuda.synchronize if mesh.device.type == "cuda" else lambda device: None
-    for _ in range(repeats):
+    for _ in range(REPEATS):
         sync(mesh.device)
         c0, t0 = mesh.stats.seconds(), time.perf_counter()
         step(state, cam_batch, gt, cams)
@@ -113,24 +115,19 @@ def main(argv=None) -> None:
                     help="SPEC:CAMS, e.g. 1x2:0 or 2x1:0,1")
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default=None)
-    ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--sh_degree", type=int, default=3)
-    ap.add_argument("--tile", type=int, default=32)
-    ap.add_argument("--lambda_dorient", type=float, default=0.1)
     args = ap.parse_args(argv)
 
     device = init_distributed(args.device)
     with np.load(args.batch) as z:
         cam_batch, gt = load_batch(dict(z), device)
     state = stage1.load_checkpoint(args.checkpoint, device)
-    kw = step_kwargs(gt.image.shape[3], gt.image.shape[2], args.sh_degree, args.tile,
-                     args.lambda_dorient)
+    kw = step_kwargs(gt.image.shape[3], gt.image.shape[2])
     for entry in args.mesh:
         spec, cams = entry.split(":")
         cams = [int(c) for c in cams.split(",")]
         mesh = make_mesh2d(*parse_mesh_spec(spec), device)
         new_state, rec = one_step(mesh, state, cam_batch, gt, cams, kw)
-        rec.update(time_steps(mesh, state, cam_batch, gt, cams, kw, args.repeats))
+        rec.update(time_steps(mesh, state, cam_batch, gt, cams, kw))
         out = os.path.join(args.out, spec)
         os.makedirs(out, exist_ok=True)
         np.savez(os.path.join(out, f"rank{mesh.rank}.npz"),

@@ -506,8 +506,9 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     reference's one camera per iteration, as in the JAX package).  Every
     rank draws the same cameras and data rank d takes the d-th; densify and
     opacity resets run on every rank on the replicated state.  Rank 0 alone
-    logs, evaluates, writes files and serves the viewer, whose release of
-    each step reaches the other ranks by a broadcast.  At the end the ranks
+    logs, evaluates, writes files and serves the viewer; while the viewer
+    holds rank 0, the other ranks wait in the step's first collective.  At
+    the end the ranks
     compare state hashes (a difference raises) and rank 0 prints a
     ``mesh_summary`` JSON line: per rank the step ms, the ms and bytes of
     its collectives per step and its kernel launches.  The batched-camera
@@ -516,7 +517,6 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         raise NotImplementedError("the batched-camera step is not ported")
     mesh = None
     if mesh_spec:
-        from gaussianhaircut_torch.parallel import collectives as coll
         from gaussianhaircut_torch.parallel.mesh import make_mesh2d, parse_mesh_spec
         from gaussianhaircut_torch.parallel.tile_parallel import dp_tp_train_step
         mesh = make_mesh2d(*parse_mesh_spec(mesh_spec), device)
@@ -558,12 +558,6 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         sh_deg = min(iteration // 1000, model_cfg.sh_degree)
         if main_rank:
             poll_gui(state, model_cfg, raster_cfg, sh_deg, iteration, opt_cfg.iterations)
-        if mesh is not None:
-            # the viewer may hold rank 0 above: the others wait for it here
-            go = coll.broadcast(mesh, torch.tensor([iteration], device=device))
-            if int(go) != iteration:
-                raise RuntimeError(f"rank {mesh.rank} at iteration {iteration}, "
-                                   f"rank 0 at {int(go)}")
         if len(stack) < n_data:
             # a fresh shuffled epoch in front of the leftovers, so that no
             # camera of an epoch is dropped when n_data does not divide it

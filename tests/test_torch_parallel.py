@@ -330,6 +330,60 @@ def test_row_windows_equal_full_render(runs, n_tile):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("n_tile", [2, 4])
+def test_row_windows_exact_for_footprints_across_windows(n_tile):
+    """Tall Gaussians centred anywhere -- above the image, or high in an
+    upper window, far above a lower window's first row -- whose footprints
+    reach lower windows (a 64x544 image, the bench's height: windows of 272
+    or 144 rows): every window, ``rasterize(..., full_height=H, row0=y0)``,
+    is the full render's rows bit for bit, visibility and radii included,
+    and the windows' gradients sum to the full render's.  (Pixel means
+    shifted by -y0 would round for some of these Gaussians, and the
+    difference from a pixel would round again.)"""
+    width, height, p = 64, 544, 32
+    rng = np.random.default_rng(11)
+    cfg = RasterConfig(tile_w=16, tile_h=16)
+    mean = np.stack([rng.uniform(-20, width + 20, p), rng.uniform(-60, height + 60, p)], 1)
+    mean[:12, 1] = rng.uniform(-120.0, 60.0, 12)
+    sx, sy = rng.uniform(6.0, 30.0, p), rng.uniform(20.0, 150.0, p)
+    cxy = rng.uniform(-0.5, 0.5, p) * sx * sy
+    det = sx * sx * sy * sy - cxy * cxy
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    size = np.array([width, height])
+    ndc = f32(np.concatenate([(2.0 * mean + 1.0) / size - 1.0, np.zeros((p, 1))], 1))
+    conic = f32(np.stack([sy * sy / det, -cxy / det, sx * sx / det], 1))
+    colors = f32(rng.uniform(size=(p, 10)))
+    opacity = f32(rng.uniform(0.1, 0.6, (p, 1)))
+    depth = f32(rng.uniform(1.0, 5.0, p))
+    valid = torch.ones(p, dtype=torch.bool)
+    bg = default_background(False, "cpu")
+    leaves = [t.requires_grad_() for t in (ndc, conic, colors, opacity, bg)]
+    weight = f32(rng.normal(size=(10, height, width)))
+    from gaussianhaircut_torch.ops.rasterize.api import rasterize
+
+    full = rasterize(ndc, conic, colors, opacity, depth, valid, bg, width, height, cfg)
+    g_full = torch.autograd.grad((full["render"] * weight).sum(), leaves)
+    _, windows = row_windows(height, 16, n_tile)
+    g_sum, vis, radii, reached = [0.0] * len(leaves), torch.zeros(p, dtype=torch.bool), 0, 0
+    for y0, rows in windows:
+        win = rasterize(ndc, conic, colors, opacity, depth, valid, bg, width, rows, cfg,
+                        full_height=height, row0=y0)
+        assert torch.equal(win["render"], full["render"][:, y0:y0 + rows]), y0
+        assert torch.equal(win["final_T"], full["final_T"][y0:y0 + rows]), y0
+        g = torch.autograd.grad((win["render"] * weight[:, y0:y0 + rows]).sum(), leaves)
+        g_sum = [a + b for a, b in zip(g_sum, g)]
+        vis = vis | win["visibility"]
+        radii = torch.maximum(torch.as_tensor(radii), win["radii"])
+        if y0 > 0:
+            reached += int(win["visibility"][:12].sum())
+    assert reached >= 3, f"{reached} windows reached by Gaussians centred high up"
+    assert torch.equal(vis, full["visibility"]) and torch.equal(radii, full["radii"])
+    for name, a, b in zip(("ndc", "conic", "colors", "opacity", "bg"), g_sum, g_full):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3, atol=1e-4 * scale,
+                                   err_msg=name)
+
+
 CLI_ARGS = ["--device", "cpu", "--sh_degree", "1", "--gaussian_capacity", "64",
             "--iterations", "2", "--test_iterations", "2", "--save_iterations", "2",
             "--checkpoint_iterations", "2"]
