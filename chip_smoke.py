@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,viewer,
-                                    cli,mesh,video,strands,kernel_strands,pipeline,masks,quality]
+                                    cli,mesh,batched,video,strands,kernel_strands,pipeline,masks,
+                                    quality]
 
 Drives the port's main paths, the stage-1 trainer and its CLIs, the
-multi-device step on one card, the live viewer, the video, the strand stack's CLIs, the whole reconstruction
-pipeline and the mask fallback, on the bench
+multi-device step on one card, the batched-camera step, the live viewer, the video, the strand
+stack's CLIs, the whole reconstruction pipeline and the mask fallback, on the bench
 scene (seeded synthetic point cloud, 100k Gaussians, 960x544, SH degree 3,
 four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
 
@@ -61,12 +62,33 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    that gloo takes CUDA tensors in every collective
                    ``parallel/collectives.py`` uses; step ms, collective
                    ms and bytes per step per rank;
-10. video        -- ``cli.render_video`` on the cli phase's model for 24
+10. batched     -- the batched-camera step on the cli phase's scene and
+                   iteration-30 checkpoint: (a) ``rasterize_batched`` of all
+                   four views equal to four ``rasterize`` calls bit for bit
+                   (render, final_T, radii, visibility); (b) both kernels on
+                   the four views' virtual grid of 4 x 510 tiles against
+                   their plain versions (the forward bit for bit, the warp
+                   masks equal, the backward twice bit-identical) and the
+                   backward row by row at two views; (c) the parameter
+                   gradients of a seeded cotangent through one batched
+                   render against the sum of four single renders'
+                   (BATCH_GRAD_TOL; whether bit-equal is printed); (d)
+                   ``train_step_batched`` at B=1 equal to ``train_step`` bit
+                   for bit, and at B=2 within tests/test_parallel.py's
+                   tolerances of two ``step_grads`` averaged here by hand;
+                   (e) ``train(camera_batch=2)`` for 20 iterations through
+                   one densification: one launch of each kernel per step,
+                   finite losses; (f) ms per step, cameras/s, launches,
+                   ``num_rendered`` and peak memory at B = 1, 2 and 4
+                   (median of BATCH_REPS synchronized steps from the same
+                   state; ``train_step`` timed beside them), and the two
+                   kernels' ms on the four-view grid;
+11. video        -- ``cli.render_video`` on the cli phase's model for 24
                    frames: exactly 24 forward launches, frame 0 equal to the
                    plain forward's render of its camera (the tile buffer bit
                    for bit, the PNG byte for byte), the AVI's index read
                    back to the frames' PNG bytes; frames/s and peak memory;
-11. strands     -- the strand stack on the bench scene written to disk:
+12. strands     -- the strand stack on the bench scene written to disk:
                    ``cli.train_gaussians`` for 20 iterations (the head PLY
                    and camera pickles), ``cli.train_latent_strands`` at the
                    full-width defaults (10,000 strands x 100 points, texture
@@ -78,12 +100,12 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    exported [10000, 100, 3] strands are finite; per stage
                    it/s, instances (the hair rows' share), chunks, the
                    largest tile and peak memory;
-12. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
+13. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
                    the head and 990k strand Gaussians): the forward bit for
                    bit, the backward row by row (two runs bit-identical),
                    the probe and the card's warp masks against their plain
                    versions, with the kernels' times and bounds;
-13. pipeline    -- the reconstruction pipeline from a scene directory:
+14. pipeline    -- the reconstruction pipeline from a scene directory:
                    8 views at 1920x1088 rendered from the strand scene of
                    ``strands`` (images, hair / face / body masks), COLMAP
                    text with the 100k points, a closed sphere head of
@@ -106,11 +128,11 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    one view's pixel-to-face map equal to the plain numpy
                    loop, a non-empty scalp cut from the head, a non-empty
                    UV mask, and its seconds;
-14. masks       -- ``cli.calc_masks`` (the GrabCut fallback) on two of that
+15. masks       -- ``cli.calc_masks`` (the GrabCut fallback) on two of that
                    scene's raw 1920x1088 views: non-empty hair, face and
                    body masks, hair and face nearly disjoint; seconds per
                    view, split into the min cuts and the rest;
-15. quality     -- the quality harnesses on the card: the strand gate of
+16. quality     -- the quality harnesses on the card: the strand gate of
                    tests/test_quality_gate_strands.py at its configuration
                    (96 px, 10 + 3 views, 384 strands x 16, texture 64, 500
                    stage-2 iterations, a 120-step distilled prior, 300
@@ -148,7 +170,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "viewer", "cli",
-          "mesh", "video", "strands", "kernel_strands", "pipeline", "masks", "quality")
+          "mesh", "batched", "video", "strands", "kernel_strands", "pipeline", "masks", "quality")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -183,6 +205,17 @@ MESH_ITERS, MESH_DENSIFY = 30, 20
 # tests/test_parallel.py's tolerances, held by the mesh phase's steps
 MESH_TOL = {"metrics": (2e-4, 1e-5), "params": (1e-3, 2e-5), "cam_res": (1e-3, 1e-6),
             "xyz_grad_accum": (1e-3, 1e-7), "denom": (0.0, 1e-6), "max_radii2d": (0.0, 1e-5)}
+# the batched phase: the batch sizes timed, the synchronized steps timed at
+# each, the loop's iterations and its one densification, and the tolerance
+# of a batched render's parameter gradients against four single renders'
+# summed (|got - want| <= atol_frac * max|want| + rtol * |want|, per tensor:
+# the float64 segment scan and the precompute's accumulation run in another
+# order)
+BATCH_SIZES, BATCH_REPS, BATCH_ITERS, BATCH_DENSIFY = (1, 2, 4), 20, 20, 10
+BATCH_GRAD_TOL = {"rtol": 1e-4, "atol_frac": 1e-5}
+# what the compositing kernels' grid may hold (csrc/raster_common.cuh: tile_origin)
+GRID_NOTE = ("one image, a window of its rows from row0, or B images stacked as a "
+             "virtual grid of B*gy tile rows (a tile's row in its image: (tile // gx) % gy)")
 # two ranks on this card: NCCL, then gloo with CUDA tensors in each collective
 NCCL_PROBE = """
 import torch, torch.distributed as dist
@@ -251,13 +284,15 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def seeded_cotangent(torch, cfg, dev):
+def seeded_cotangent(torch, cfg, dev, n_batch=None):
+    """A seeded tile-buffer cotangent of one image, or of ``n_batch``."""
     from gaussianhaircut_torch.ops.rasterize import common as C
     from gaussianhaircut_torch.render.renderer import default_background
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    g_img = torch.randn((C.NUM_CHANNELS, HEIGHT, WIDTH), generator=gen, device=dev)
-    g_t = torch.randn((HEIGHT, WIDTH), generator=gen, device=dev)
+    lead = () if n_batch is None else (n_batch,)
+    g_img = torch.randn(lead + (C.NUM_CHANNELS, HEIGHT, WIDTH), generator=gen, device=dev)
+    g_t = torch.randn(lead + (HEIGHT, WIDTH), generator=gen, device=dev)
     return C.disassemble_cotangent(g_img, g_t, default_background(False, dev),
                                    WIDTH, HEIGHT, cfg)
 
@@ -350,6 +385,8 @@ def main() -> int:
             "video renders the model the cli phase trains")
     require("mesh" not in phases or "cli" in phases,
             "mesh starts from the scene and the checkpoint the cli phase writes")
+    require("batched" not in phases or "cli" in phases,
+            "batched starts from the scene and the checkpoint the cli phase writes")
     require("masks" not in phases or "pipeline" in phases,
             "masks runs on the views of the pipeline phase's scene")
 
@@ -377,11 +414,11 @@ def main() -> int:
         "raster_fwd": {"name": "raster_fwd", "route": "cuda",
                        "source": "gaussianhaircut_torch/csrc/raster_fwd.cu",
                        "replaces": "gaussianhaircut_tpu/ops/rasterize/pallas_core.py:589",
-                       "library_ms": None},
+                       "grid": GRID_NOTE, "library_ms": None},
         "raster_bwd": {"name": "raster_bwd", "route": "cuda",
                        "source": "gaussianhaircut_torch/csrc/raster_bwd.cu",
                        "replaces": "gaussianhaircut_tpu/ops/rasterize/pallas_core.py:938",
-                       "library_ms": None},
+                       "grid": GRID_NOTE, "library_ms": None},
         "raster_probe": {"name": "raster_probe", "route": "cuda",
                          "source": "gaussianhaircut_torch/csrc/raster_probe.cu",
                          "replaces": "tools/tpu_profile_r4.py:493",
@@ -503,6 +540,11 @@ def main() -> int:
                 res = mesh_phase(torch, root)
                 for name in ("raster_fwd", "raster_bwd"):
                     kernels[name]["launches_mesh"] = res["launches_mesh"][name]
+                emit(res)
+            if "batched" in phases:
+                res = batched_phase(torch, root, cfg, kernels)
+                for name in ("raster_fwd", "raster_bwd"):
+                    kernels[name]["launches_batched"] = res["loop"]["launches"][name]
                 emit(res)
             if "video" in phases:
                 t0 = time.perf_counter()
@@ -1128,6 +1170,250 @@ def mesh_phase(torch, root):
             f"parallel/collectives.py hands it as they are ({ops})")
     out["gloo_cuda_ops"] = ops
     out["launches_mesh"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def hold_close(got, want, what: str, rtol: float, atol_frac: float) -> dict:
+    """|got - want| <= atol_frac * max|want| + rtol * |want| -> the max
+    error, max |want| and whether the two are bit-equal."""
+    import torch
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    excess = float((err - (atol_frac * scale + rtol * want.abs())).max())
+    require(excess <= 0, f"{what}: beyond rtol {rtol} / atol {atol_frac} x max|want| (max|want| "
+            f"{scale}, max err {float(err.max())})")
+    return {"max_abs_err": float(err.max()), "max_abs": scale,
+            "bit_equal": bool(torch.equal(got, want))}
+
+
+def batched_phase(torch, root, cfg, kernels):
+    """The batched-camera step (module doc, phase batched), from the cli
+    phase's scene (``root/scene``) and iteration-30 checkpoint."""
+    from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from gaussianhaircut_torch.ops.rasterize import common as C
+    from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
+    from gaussianhaircut_torch.ops.rasterize.api import (
+        ndc_xy_to_pixel, rasterize, rasterize_batched)
+    from gaussianhaircut_torch.render.renderer import (
+        default_background, fields_from_params, prepare_raster_inputs, render_fields,
+        render_fields_batched)
+    from gaussianhaircut_torch.scene.cameras import CameraBatch, camera_geom
+    from gaussianhaircut_torch.scene.dataset import load_scene
+    from gaussianhaircut_torch.tools import mesh_check
+    from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, nvidia_smi
+    from gaussianhaircut_torch.train import stage1
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    scene = load_scene(ModelConfig(source_path=os.path.join(root, "scene")))
+    cb = CameraBatch.from_cameras(scene.train_cameras, dev)
+    gt = stage1.GtBatch.from_cameras(scene.train_cameras, dev)
+    kw = mesh_check.step_kwargs(WIDTH, HEIGHT)
+    sh = kw["active_sh_degree"]
+    state = stage1.load_checkpoint(os.path.join(root, "model", "checkpoints", "30.npz"), dev)
+    params, alive = state.model.params, state.model.aux.alive
+    bg = default_background(False, dev)
+    views = list(range(N_VIEWS))
+    geoms = [camera_geom(cb.colmap_transform[i], cb.fovx[i], cb.fovy[i], WIDTH, HEIGHT,
+                         state.cam_res, i, use_barf=True) for i in views]
+    out = {"phase": "batched", "nvidia_smi": nvidia_smi(), "slots": state.model.capacity,
+           "num_alive": state.model.num_alive()}
+
+    # (a) one batched render of the four views against four single renders
+    with torch.no_grad():
+        fields = fields_from_params(params, alive)
+        inputs = [prepare_raster_inputs(fields, sh, g) for g in geoms]
+        stacked = [torch.stack(x) for x in zip(*inputs)]
+        cuda_core.reset_launch_counts()
+        batch = rasterize_batched(*stacked, bg, WIDTH, HEIGHT, cfg)
+        require(cuda_core.launches["raster_fwd"] == 1,
+                f"batched: rasterize_batched of {N_VIEWS} views launched {cuda_core.launches}")
+        singles = [rasterize(*x, bg, WIDTH, HEIGHT, cfg) for x in inputs]
+    for k in ("render", "final_T", "radii", "visibility"):
+        for b, one in enumerate(singles):
+            require(torch.equal(batch[k][b], one[k]),
+                    f"batched: view {b}'s {k} differs from its single render")
+    per_view = [one["num_rendered"] for one in singles]
+    require(batch["num_rendered"] == sum(per_view)
+            and batch["num_rendered_bound"] == N_VIEWS * max(per_view),
+            f"batched: num_rendered {batch['num_rendered']} / bound "
+            f"{batch['num_rendered_bound']} for views {per_view}")
+    out["render_b4"] = {"equal_to_single_renders": True, "num_rendered": batch["num_rendered"],
+                        "num_rendered_per_view": per_view}
+    del batch, singles
+
+    # (b) both kernels on the four views' grid against their plain versions
+    def binned(sel):
+        ndc, conic, colors, opacity, depth, valid = (x[sel].reshape((-1,) + tuple(x.shape[2:]))
+                                                     for x in stacked)
+        mean_pix = ndc_xy_to_pixel(ndc, WIDTH, HEIGHT)
+        pre = C.preprocess(mean_pix, conic, depth, valid, WIDTH, HEIGHT, cfg, opacity=opacity)
+        return C.bin_instances(pre, mean_pix, conic, opacity, colors, depth, WIDTH, HEIGHT,
+                               cfg, n_batch=len(sel))
+
+    gy = cfg.grid(WIDTH, HEIGHT)[1]
+    b4 = binned(views)
+    lay = (b4.payload, b4.chunk_start, b4.nchunks)
+    card_masks = cuda_core.warp_masks(*lay, WIDTH, HEIGHT, cfg)
+    masks = plain_core.warp_masks_plain(*lay, WIDTH, cfg, grid_y=gy)
+    require(torch.equal(card_masks, masks), f"batched: {int((card_masks != masks).sum())} of "
+            "the card's warp masks differ from the plain mirror's on the four-view grid")
+    stats = {}
+    plain_buf = plain_core.raster_fwd_plain(*lay, WIDTH, HEIGHT, cfg, stats=stats, masks=masks)
+    tile_buf = cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg)
+    require(torch.equal(tile_buf, plain_buf),
+            "batched: the forward kernel on the four-view grid is not its plain version's "
+            f"bit for bit (max err {float((tile_buf - plain_buf).abs().max())})")
+    del plain_buf
+    gbuf = seeded_cotangent(torch, cfg, dev, N_VIEWS)
+    bargs = (*lay, tile_buf, gbuf, WIDTH, HEIGHT, cfg)
+    d1 = cuda_core.raster_bwd(*bargs)
+    require(bool(torch.isfinite(d1).all()) and torch.equal(d1, cuda_core.raster_bwd(*bargs)),
+            "batched: the backward kernel on the four-view grid is non-finite or differs "
+            "between two runs")
+    b2 = binned(views[:2])
+    lay2 = (b2.payload, b2.chunk_start, b2.nchunks)
+    buf2 = cuda_core.raster_fwd(*lay2, WIDTH, HEIGHT, cfg)
+    require(torch.equal(buf2, plain_core.raster_fwd_plain(*lay2, WIDTH, HEIGHT, cfg)),
+            "batched: the forward kernel at two views is not its plain version's")
+    bargs2 = (*lay2, buf2, seeded_cotangent(torch, cfg, dev, 2), WIDTH, HEIGHT, cfg)
+    rows = hold_dpay(cuda_core.raster_bwd(*bargs2), plain_core.raster_bwd_plain(*bargs2))
+    # the two kernels' times on the four-view grid, and their bounds for
+    # the pairs this grid's data needs (the kernel phases' counting)
+    used_chunks = int(b4.nchunks.sum())
+    in_bytes = used_chunks * 16 * cfg.chunk * 4 + 2 * b4.num_tiles * 4
+    buf_bytes = b4.num_tiles * cfg.tile_pix * C.PAD_CHANNELS * 4
+    grid_b4 = {}
+    for name, fn, nbytes, blend in (
+            ("raster_fwd", lambda: cuda_core.raster_fwd(*lay, WIDTH, HEIGHT, cfg),
+             in_bytes + buf_bytes, OPS_BLEND_FWD),
+            ("raster_bwd", lambda: cuda_core.raster_bwd(*bargs),
+             in_bytes + 2 * buf_bytes + used_chunks * C.GRAD_ROWS * cfg.chunk * 4,
+             OPS_BLEND_BWD)):
+        b_ms, b_by = bound_ms(nbytes, stats["kept"] * OPS_VISIT + stats["contrib"] * blend)
+        grid_b4[name] = {"ms": cuda_ms(fn, REPS), "bound_ms": b_ms, "bound_by": b_by}
+        kernels[name]["batched_b4"] = grid_b4[name]
+    # the same work as four launches, one per view's own grid
+    singles_ms = {"raster_fwd": 0.0, "raster_bwd": 0.0}
+    for i in views:
+        one = binned([i])
+        lay1 = (one.payload, one.chunk_start, one.nchunks)
+        buf1 = cuda_core.raster_fwd(*lay1, WIDTH, HEIGHT, cfg)
+        g1 = gbuf[i * b4.num_tiles // N_VIEWS:(i + 1) * b4.num_tiles // N_VIEWS]
+        singles_ms["raster_fwd"] += cuda_ms(
+            lambda: cuda_core.raster_fwd(*lay1, WIDTH, HEIGHT, cfg), REPS)
+        singles_ms["raster_bwd"] += cuda_ms(
+            lambda: cuda_core.raster_bwd(*lay1, buf1, g1, WIDTH, HEIGHT, cfg), REPS)
+    for name in singles_ms:
+        grid_b4[name]["four_single_view_launches_ms"] = singles_ms[name]
+    out["kernels_b4"] = {"tiles": b4.num_tiles, "chunks_used": used_chunks,
+                         "num_rendered": b4.num_rendered, "pairs_visited_kept": stats["kept"],
+                         "pairs_blended": stats["contrib"], "masks_equal": True,
+                         "forward_bit_identical": True, "backward_runs_identical": True,
+                         "backward_b2_rows": rows, **grid_b4}
+    del b4, b2, one, lay, lay2, lay1, bargs, bargs2, tile_buf, buf2, buf1, d1, gbuf, g1
+    del masks, card_masks
+
+    # (c) parameter gradients of a seeded cotangent: one batched render
+    # against four single renders summed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    weight = torch.randn((N_VIEWS, 10, HEIGHT, WIDTH), generator=gen, device=dev)
+    leaves = params.map(lambda t: t.detach().requires_grad_())
+    got = torch.autograd.grad(
+        (render_fields_batched(fields_from_params(leaves, alive), sh, geoms, bg, cfg)
+         ["render10"] * weight).sum(), leaves.values(), allow_unused=True)
+    want = None
+    for b, g in enumerate(geoms):
+        one = torch.autograd.grad(
+            (render_fields(fields_from_params(leaves, alive), sh, g, bg, cfg)["render10"]
+             * weight[b]).sum(), leaves.values(), allow_unused=True)
+        want = one if want is None else [a if c is None else a + c for a, c in zip(want, one)]
+    grads = {}
+    for name, a, c in zip(params.names(), got, want):
+        require((a is None) == (c is None), f"batched: {name}'s gradient reached one side only")
+        if c is not None:
+            grads[name] = hold_close(a, c, f"batched: {name}'s gradient", **BATCH_GRAD_TOL)
+    out["grads_b4"] = {"tolerance": BATCH_GRAD_TOL, **grads}
+    del got, want, leaves
+
+    # (d) the step: B=1 against train_step, B=2 against the oracle
+    ref, ref_m = stage1.train_step(state, cb, gt, 0, **kw)
+    one, one_m = stage1.train_step_batched(state, cb, gt, [0], **kw)
+    require(stage1.state_digest(one) == stage1.state_digest(ref),
+            "batched: the B=1 step differs from train_step")
+    require(all(torch.equal(one_m[k], ref_m[k]) for k in ("l1", "ssim", "mask", "orient", "total")),
+            "batched: the B=1 step's metrics differ from train_step's")
+    two, two_m = stage1.train_step_batched(state, cb, gt, [0, 1], **kw)
+    oracle, oracle_m = averaged_oracle(torch, state, cb, gt, [0, 1], kw)
+    out["step"] = {"b1_equal_to_train_step": True, "state_sha256": stage1.state_digest(one),
+                   "b2_max_err": hold_mesh_step(two, two_m, oracle, oracle_m, "batched B=2")}
+    del ref, one, two, oracle
+
+    # (f) ms per step from the same state, cameras/s, launches, memory
+    timing = {}
+    for n in ("train_step",) + BATCH_SIZES:
+        step = ((lambda: stage1.train_step(state, cb, gt, 0, **kw)) if n == "train_step" else
+                (lambda n=n: stage1.train_step_batched(state, cb, gt, views[:n], **kw)))
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_core.reset_launch_counts()
+        _, m = step()
+        torch.cuda.synchronize()
+        launches = {k: cuda_core.launches[k] for k in ("raster_fwd", "raster_bwd")}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ms = []
+        for _ in range(BATCH_REPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        cams = 1 if n == "train_step" else n
+        require(launches == {"raster_fwd": 1, "raster_bwd": 1},
+                f"batched: a step at {n} launched {launches}")
+        timing[str(n)] = {"ms_median": statistics.median(ms), "ms_min": min(ms),
+                          "ms_max": max(ms), "cameras_per_s": cams * 1e3 / statistics.median(ms),
+                          "launches_per_step": launches, "num_rendered": m["num_rendered"],
+                          "peak_mem_gb": peak}
+    out["timing"] = timing
+
+    # (e) the loop: train(camera_batch=2) through one densification
+    opt_cfg = OptimizationConfig(iterations=BATCH_ITERS, lambda_dorient=0.1,
+                                 densify_from_iter=BATCH_DENSIFY // 2,
+                                 densification_interval=BATCH_DENSIFY,
+                                 densify_until_iter=BATCH_DENSIFY + 1)
+    model_cfg = ModelConfig(sh_degree=3, use_barf=True, trainable_cameras=True,
+                            trainable_intrinsics=True)
+    totals, alive_at = [], {}
+
+    def progress(it, st, m):
+        totals.append(m["total"])
+        if it in (BATCH_DENSIFY - 1, BATCH_DENSIFY, BATCH_ITERS):
+            alive_at[it] = st.model.num_alive()
+
+    cuda_core.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = stage1.train(model_cfg, opt_cfg, PipelineConfig(tile=32), scene, device=dev,
+                         camera_batch=2, progress_callback=progress, test_iterations=(),
+                         save_iterations=(), checkpoint_iterations=())
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {k: cuda_core.launches[k] for k in ("raster_fwd", "raster_bwd")}
+    totals = torch.stack(totals).cpu().numpy()
+    require(final.step == BATCH_ITERS and bool(np.isfinite(totals).all()),
+            f"batched: train(camera_batch=2) ended at step {final.step}, losses {totals}")
+    require(launches == {"raster_fwd": BATCH_ITERS, "raster_bwd": BATCH_ITERS},
+            f"batched: train(camera_batch=2) launched {launches} in {BATCH_ITERS} steps")
+    require(alive_at[BATCH_DENSIFY] != alive_at[BATCH_DENSIFY - 1],
+            f"batched: num_alive did not change at the densification ({alive_at})")
+    require(int(final.cam_opt.count.sum()) == 2 * BATCH_ITERS,
+            f"batched: camera rows stepped {final.cam_opt.count.tolist()}")
+    out["loop"] = {"iterations": BATCH_ITERS, "step": final.step, "seconds": loop_s,
+                   "num_alive": {str(k): v for k, v in sorted(alive_at.items())},
+                   "loss_first": float(totals[0]), "loss_last": float(totals[-1]),
+                   "camera_rows_stepped": final.cam_opt.count.tolist(), "launches": launches}
     out["seconds"] = time.perf_counter() - t_phase
     return out
 

@@ -93,7 +93,7 @@ raster_bwd_kernel(const float* __restrict__ payload,
                   const float* __restrict__ tile_buf,
                   const float* __restrict__ gbuf,
                   float* __restrict__ dpay,
-                  int grid_x, int tile_w, int ch, int row0) {
+                  int grid_x, int grid_y, int tile_w, int ch, int row0) {
   extern __shared__ float4 smem4[];
   const int nwarps = blockDim.x / 32;
   float4* s_inst = smem4;                                         // [ch][4]
@@ -105,7 +105,7 @@ raster_bwd_kernel(const float* __restrict__ payload,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tile_h = blockDim.x / tile_w;
-  const TileOrigin o = tile_origin(tile, grid_x, tile_w, tile_h, row0);
+  const TileOrigin o = tile_origin(tile, grid_x, grid_y, tile_w, tile_h, row0);
   const Pixel p = footprint_pixel(warp, lane, tile_w);
   const float px = static_cast<float>(o.x0 + p.x);
   const float py = static_cast<float>(o.y0 + p.y);
@@ -227,7 +227,9 @@ raster_bwd_kernel(const float* __restrict__ payload,
 }
 
 // dpay must be zero-filled by the caller (chunks after a tile's early stop
-// are not written).  Launches on `stream`; returns cudaGetLastError().
+// are not written).  The grid holds num_tiles / (grid_x * grid_y) images, or
+// one image's rows from row0 on (tile_origin).  Launches on `stream`;
+// returns cudaGetLastError().
 static size_t smem_bytes(int threads, int ch) {
   const int nwarps = threads / 32;
   return static_cast<size_t>(kInstFloats) * ch * sizeof(float)
@@ -239,8 +241,8 @@ static size_t smem_bytes(int threads, int ch) {
 extern "C" int raster_bwd(const float* payload, const int* chunk_start,
                           const int* nchunks, const int* tile_order,
                           const float* tile_buf, const float* gbuf, float* dpay,
-                          int num_tiles, int grid_x, int tile_w, int tile_h, int ch,
-                          int row0, void* stream) {
+                          int num_tiles, int grid_x, int grid_y, int tile_w, int tile_h,
+                          int ch, int row0, void* stream) {
   const int threads = tile_w * tile_h;
   const size_t smem = smem_bytes(threads, ch);
   cudaError_t err = cudaFuncSetAttribute(
@@ -251,7 +253,7 @@ extern "C" int raster_bwd(const float* payload, const int* chunk_start,
     raster_bwd_kernel<<<num_tiles, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         payload, chunk_start, nchunks, tile_order, tile_buf, gbuf, dpay, grid_x,
-        tile_w, ch, row0);
+        grid_y, tile_w, ch, row0);
   }
   return static_cast<int>(cudaGetLastError());
 }

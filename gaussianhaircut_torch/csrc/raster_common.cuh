@@ -128,17 +128,21 @@ __device__ __forceinline__ unsigned warp_mask(float gx, float gy, float a, float
   return mask;
 }
 
-// Where a tile starts, in pixels of the image.  A grid that covers a window
-// of the image's rows starts at row0 (a whole number of tile rows): the
-// tile-row mesh step renders such windows, and the pixel coordinates stay
-// the whole image's, so a window's tiles are the whole render's bit for bit.
+// Where a tile starts, in pixels of its image.  A grid of B images stacks
+// them as a virtual grid of B * grid_y tile rows (image b's rows are
+// [b * grid_y, (b + 1) * grid_y)), so a tile's row within its own image is
+// (tile / grid_x) % grid_y, the TPU kernels' rule (pallas_core.py:471-475,
+// 827-829).  A grid that covers a window of one image's rows starts at row0
+// (a whole number of tile rows): the tile-row mesh step renders such
+// windows, and the pixel coordinates stay the whole image's, so a window's
+// tiles are the whole render's bit for bit.
 struct TileOrigin {
   int x0, y0;
 };
 
-__device__ __forceinline__ TileOrigin tile_origin(int tile, int grid_x, int tile_w,
-                                                  int tile_h, int row0 = 0) {
-  return {(tile % grid_x) * tile_w, row0 + (tile / grid_x) * tile_h};
+__device__ __forceinline__ TileOrigin tile_origin(int tile, int grid_x, int grid_y,
+                                                  int tile_w, int tile_h, int row0 = 0) {
+  return {(tile % grid_x) * tile_w, row0 + ((tile / grid_x) % grid_y) * tile_h};
 }
 
 // Stage one chunk into shared memory, instance-major: instance j as 16

@@ -44,7 +44,8 @@ raster_fwd_kernel(const float* __restrict__ payload,
                   const int* __restrict__ nchunks,
                   const int* __restrict__ tile_order,
                   float* __restrict__ tile_buf,
-                  int grid_x, int tile_w, int tile_h, int ch, int split, int row0) {
+                  int grid_x, int grid_y, int tile_w, int tile_h, int ch, int split,
+                  int row0) {
   extern __shared__ float4 smem4[];
   float4* s_inst = smem4;                                         // [ch][4]
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_inst + 4 * ch);  // [ch]
@@ -52,7 +53,7 @@ raster_fwd_kernel(const float* __restrict__ payload,
   const int tile = tile_order[blockIdx.x / split];
   const int warp = (blockIdx.x % split) * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const TileOrigin o = tile_origin(tile, grid_x, tile_w, tile_h, row0);
+  const TileOrigin o = tile_origin(tile, grid_x, grid_y, tile_w, tile_h, row0);
   const Pixel p = footprint_pixel(warp, lane, tile_w);
   const float px = static_cast<float>(o.x0 + p.x);
   const float py = static_cast<float>(o.y0 + p.y);
@@ -118,12 +119,12 @@ raster_warp_masks_kernel(const float* __restrict__ payload,
                          const int* __restrict__ chunk_start,
                          const int* __restrict__ nchunks,
                          unsigned* __restrict__ masks,
-                         int grid_x, int tile_w, int ch, int row0) {
+                         int grid_x, int grid_y, int tile_w, int ch, int row0) {
   extern __shared__ float4 smem4[];
   float4* s_inst = smem4;
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_inst + 4 * ch);
   const int tile = blockIdx.x;
-  const TileOrigin o = tile_origin(tile, grid_x, tile_w, blockDim.x / tile_w, row0);
+  const TileOrigin o = tile_origin(tile, grid_x, grid_y, tile_w, blockDim.x / tile_w, row0);
   const int c0 = chunk_start[tile];
   for (int k = 0; k < nchunks[tile]; ++k) {
     __syncthreads();
@@ -141,29 +142,30 @@ static size_t staging_bytes(int ch) {
 }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
-// The grid covers the image's rows from row0 on (tile_origin).
+// The grid holds num_tiles / (grid_x * grid_y) images of grid_y tile rows
+// each, or one image's rows from row0 on (tile_origin).
 extern "C" int raster_fwd(const float* payload, const int* chunk_start,
                           const int* nchunks, const int* tile_order,
-                          float* tile_buf, int num_tiles, int grid_x, int tile_w,
-                          int tile_h, int ch, int row0, void* stream) {
+                          float* tile_buf, int num_tiles, int grid_x, int grid_y,
+                          int tile_w, int tile_h, int ch, int row0, void* stream) {
   const int split = tile_split(tile_w * tile_h);
   if (num_tiles > 0) {
     raster_fwd_kernel<<<num_tiles * split, tile_w * tile_h / split, staging_bytes(ch),
                         static_cast<cudaStream_t>(stream)>>>(
-        payload, chunk_start, nchunks, tile_order, tile_buf, grid_x, tile_w, tile_h,
-        ch, split, row0);
+        payload, chunk_start, nchunks, tile_order, tile_buf, grid_x, grid_y, tile_w,
+        tile_h, ch, split, row0);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int raster_warp_masks(const float* payload, const int* chunk_start,
                                  const int* nchunks, unsigned* masks, int num_tiles,
-                                 int grid_x, int tile_w, int tile_h, int ch, int row0,
-                                 void* stream) {
+                                 int grid_x, int grid_y, int tile_w, int tile_h, int ch,
+                                 int row0, void* stream) {
   if (num_tiles > 0) {
     raster_warp_masks_kernel<<<num_tiles, tile_w * tile_h, staging_bytes(ch),
                                static_cast<cudaStream_t>(stream)>>>(
-        payload, chunk_start, nchunks, masks, grid_x, tile_w, ch, row0);
+        payload, chunk_start, nchunks, masks, grid_x, grid_y, tile_w, ch, row0);
   }
   return static_cast<int>(cudaGetLastError());
 }

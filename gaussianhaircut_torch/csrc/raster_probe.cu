@@ -55,7 +55,8 @@ raster_probe_kernel(const float* __restrict__ payload,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps_row = ch >> 5;
-  const TileOrigin o = tile_origin(tile, grid_x, tile_w, tile_h);
+  // one image: its tile rows are all the grid's
+  const TileOrigin o = tile_origin(tile, grid_x, gridDim.x / split / grid_x, tile_w, tile_h);
   const Pixel p = footprint_pixel((blockIdx.x % split) * nwarps + warp, lane, tile_w);
 
   bool done = false;

@@ -11,7 +11,9 @@ to per-Gaussian gradients deterministically: a gather into expansion order
 difference per segment.  No float atomics anywhere, so a backward is
 bit-reproducible.  The tensors' device picks the compositing route
 (``cuda_core``): CUDA tensors launch the kernels, CPU tensors run their
-plain versions.
+plain versions.  ``rasterize_batched`` renders B cameras through the same
+Function: one binning, one launch of each kernel over a virtual grid of B
+images, one segment reduction.
 
 Gradient routing matches the reference: the NDC->pixel factors W/2, H/2 are
 applied here (backward.cu:462-465); depth orders but never differentiates;
@@ -49,23 +51,31 @@ def segment_sum(dpay: torch.Tensor, binned: C.Binned) -> torch.Tensor:
 
 
 class _Rasterize(torch.autograd.Function):
+    """Inputs [P, ...], or a flattened batch [B * P, ...] of B cameras'
+    Gaussians when ``n_batch`` is B (then the outputs carry a leading B
+    axis: image [B, 10, H, W], final_T [B, H, W], radii and visibility
+    [B, P])."""
+
     @staticmethod
     def forward(ctx, ndc, conic, colors, opacity, depth, valid, bg, width,
-                height, full_height, row0, cfg, info):
+                height, full_height, row0, n_batch, cfg, info):
         mean_pix = ndc_xy_to_pixel(ndc, width, full_height)
         pre = C.preprocess(mean_pix, conic, depth, valid, width, height, cfg,
                            opacity=opacity, row0=row0)
         binned = C.bin_instances(pre, mean_pix, conic, opacity, colors, depth,
-                                 width, height, cfg)
+                                 width, height, cfg, n_batch=n_batch or 1)
         tile_buf = cuda_core.raster_fwd(binned.payload, binned.chunk_start, binned.nchunks,
                                         width, height, cfg, row0)
-        image, t_final = C.assemble_image(tile_buf, bg, width, height, cfg)
+        image, t_final = C.assemble_image(tile_buf, bg, width, height, cfg, n_batch)
         info["num_rendered"] = binned.num_rendered
+        info["num_rendered_bound"] = binned.num_rendered_bound
         ctx.binned = binned
         ctx.dims = (width, height, full_height, row0, cfg)
         ctx.save_for_backward(tile_buf, bg, t_final)
         radii = pre.radius.to(torch.int32)
         visibility = pre.radius > 0
+        if n_batch is not None:
+            radii, visibility = radii.reshape(n_batch, -1), visibility.reshape(n_batch, -1)
         ctx.mark_non_differentiable(radii, visibility)
         return image, t_final, radii, visibility
 
@@ -84,10 +94,12 @@ class _Rasterize(torch.autograd.Function):
         d_conic = seg[:, C.F_CA:C.F_CC + 1]
         d_opacity = seg[:, C.F_OP:C.F_OP + 1]
         d_colors = seg[:, 6:6 + C.NUM_CHANNELS]
-        d_bg = torch.nn.functional.pad(torch.einsum("chw,hw->c", g_img, t_final),
-                                       (0, bg.shape[0] - C.NUM_CHANNELS))
+        # sum over cameras and pixels of T_final * g
+        d_bg = torch.einsum("chw,hw->c" if g_img.dim() == 3 else "bchw,bhw->c",
+                            g_img, t_final)
+        d_bg = torch.nn.functional.pad(d_bg, (0, bg.shape[0] - C.NUM_CHANNELS))
         return (d_ndc, d_conic, d_colors, d_opacity, None, None, d_bg,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def rasterize(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tensor,
@@ -117,6 +129,37 @@ def rasterize(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tensor,
     info: dict = {}
     image, t_final, radii, visibility = _Rasterize.apply(
         ndc, conic, colors, opacity, depth.to(torch.float32), valid, bg,
-        width, height, full_height or height, row0, cfg, info)
+        width, height, full_height or height, row0, None, cfg, info)
     return {"render": image, "final_T": t_final, "radii": radii,
             "visibility": visibility, "num_rendered": info["num_rendered"]}
+
+
+def rasterize_batched(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tensor,
+                      opacity: torch.Tensor, depth: torch.Tensor, valid: torch.Tensor,
+                      bg: torch.Tensor, width: int, height: int,
+                      cfg: C.RasterConfig | None = None) -> dict[str, Any]:
+    """Batched-camera splatting (the JAX package's ``rasterize_batched``):
+    every input gains a leading camera axis B, and all B cameras go through
+    one binning, one launch of each compositing kernel over a virtual grid
+    of B images (camera b's tile rows shifted by b * gy; the kernels take a
+    tile's row within its image as (tile // gx) % gy) and one segment
+    reduction.  Each camera's pixels are its own ``rasterize`` call's bit
+    for bit; its gradients differ from that call's only by the float64
+    scan's rounding over the longer stream.
+
+    Inputs: ndc [B, P, 3], conic [B, P, 3], colors [B, P, 10], opacity
+    [B, P, 1], depth [B, P], valid [B, P], bg [10] (its gradient sums over
+    cameras).  Returns render [B, 10, H, W], final_T [B, H, W], radii
+    [B, P] int32, visibility [B, P] bool, num_rendered (the instances over
+    every camera, a Python int) and num_rendered_bound (B times the largest
+    camera's count)."""
+    cfg = cfg or C.RasterConfig()
+    b, p = ndc.shape[:2]
+    flat = lambda x: x.reshape((b * p,) + tuple(x.shape[2:]))
+    info: dict = {}
+    image, t_final, radii, visibility = _Rasterize.apply(
+        flat(ndc), flat(conic), flat(colors), flat(opacity), flat(depth.to(torch.float32)),
+        flat(valid), bg, width, height, height, 0, b, cfg, info)
+    return {"render": image, "final_T": t_final, "radii": radii,
+            "visibility": visibility, "num_rendered": info["num_rendered"],
+            "num_rendered_bound": info["num_rendered_bound"]}

@@ -66,8 +66,9 @@ class Binned(NamedTuple):
                                  # in expansion (gid-ascending) order
     gauss_offset: torch.Tensor   # [P] int64 exclusive prefix of tiles_touched
     gauss_count: torch.Tensor    # [P] int64 tiles_touched
-    num_rendered: int            # N, the instance count
-    num_tiles: int
+    num_rendered: int            # N, the instance count (over every camera)
+    num_tiles: int               # B * tiles per image
+    num_rendered_bound: int      # B * the largest camera's count (N at B = 1)
 
 
 class Preprocessed(NamedTuple):
@@ -146,32 +147,50 @@ def preprocess(mean_pix: torch.Tensor, conic: torch.Tensor, depth: torch.Tensor,
 def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
                   conic: torch.Tensor, opacity: torch.Tensor,
                   colors: torch.Tensor, depth: torch.Tensor, width: int,
-                  height: int, cfg: RasterConfig) -> Binned:
+                  height: int, cfg: RasterConfig, n_batch: int = 1) -> Binned:
     """Expand Gaussians into depth-sorted, tile-grouped, chunk-aligned
-    instance buffers (one camera).  Pure bookkeeping: call it without
-    autograd; the rasterizer's backward reduces the per-instance gradients
-    itself (api.py).
+    instance buffers.  Pure bookkeeping: call it without autograd; the
+    rasterizer's backward reduces the per-instance gradients itself
+    (api.py).
+
+    With ``n_batch`` B > 1 the [P] axis is a flattened batch of B cameras'
+    Gaussians (camera b owns rows [b P/B, (b + 1) P/B)), each preprocessed
+    against its own image: camera b's tile rect, clamped to its own gy tile
+    rows by ``preprocess``, is shifted by b * gy rows into one virtual grid
+    of B * gx * gy tiles (the JAX package's rule), so no footprint reaches
+    another camera's tiles and the kernels composite every camera in one
+    launch.
 
     Order: one stable sort on the int64 key ``tile << 32 | float_bits(depth)``
     over the expansion order (gid ascending) -- the CUDA radix-sort order and
-    the JAX package's ``sort_mode="exact"`` order.  The key needs depth > 0
-    for every binned instance (negative floats' bit patterns do not sort);
-    ``preprocess`` guarantees depth > NEAR_Z."""
+    the JAX package's ``sort_mode="exact"`` order.  Tile ids of different
+    cameras are disjoint, so one sort gives each camera its own order (the
+    JAX package sorts each camera's segment apart: one sort over the batch
+    was superlinear on the TPU).  The key needs depth > 0 for every binned
+    instance (negative floats' bit patterns do not sort); ``preprocess``
+    guarantees depth > NEAR_Z."""
     dev = mean_pix.device
     p = mean_pix.shape[0]
+    if n_batch < 1 or p % n_batch:
+        raise ValueError(f"{p} Gaussians do not split into {n_batch} cameras")
     gx_grid, gy_grid = cfg.grid(width, height)
-    num_tiles = gx_grid * gy_grid
+    num_tiles = n_batch * gx_grid * gy_grid
     ch = cfg.chunk
 
     counts_g = pre.tiles_touched
     offsets = torch.cumsum(counts_g, 0) - counts_g
-    total = int(counts_g.sum())                      # the one host sync
+    per_camera = counts_g.reshape(n_batch, -1).sum(1)
+    # the one host sync: the total and B * the largest camera's count
+    total, bound = torch.stack([per_camera.sum(), per_camera.max() * n_batch]).tolist()
 
     # --- duplicateWithKeys ---
     gid = torch.repeat_interleave(torch.arange(p, device=dev), counts_g,
                                   output_size=total)
     within = torch.arange(total, device=dev) - offsets[gid]
     rmin_x, rmin_y, rmax_x, _ = pre.rect
+    if n_batch > 1:
+        # camera b's rows into its slice of the virtual grid, after the clamp
+        rmin_y = rmin_y + torch.arange(p, device=dev) // (p // n_batch) * gy_grid
     rect_w = torch.clamp(rmax_x - rmin_x, min=1)[gid]
     tile_id = (rmin_y[gid] + within // rect_w) * gx_grid + rmin_x[gid] + within % rect_w
     dbits = depth.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)[gid]
@@ -224,49 +243,58 @@ def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
                   nchunks=nchunks.to(torch.int32),
                   gid=gid_slot, slot_of_instance=slot_of_instance,
                   gauss_offset=offsets, gauss_count=counts_g,
-                  num_rendered=total, num_tiles=num_tiles)
+                  num_rendered=total, num_tiles=num_tiles, num_rendered_bound=bound)
 
 
-def pixel_coords(num_tiles: int, width: int, cfg: RasterConfig, device, row0: int = 0):
-    """(px, py) [T, PIX] float pixel coordinates of every tile pixel, of a
-    grid that covers the image's rows from ``row0`` on."""
+def pixel_coords(num_tiles: int, width: int, cfg: RasterConfig, device, row0: int = 0,
+                 grid_y: int | None = None):
+    """(px, py) [T, PIX] float pixel coordinates of every tile pixel, each
+    in its own image: of a grid of images of ``grid_y`` tile rows stacked
+    (tile t's row within its image is (t // gx) % grid_y, the kernels'
+    ``tile_origin``), or of one image's rows from ``row0`` on (``grid_y``
+    None: the layout is one image)."""
     gx_grid, _ = cfg.grid(width, 1)
+    gy_grid = grid_y or -(-num_tiles // gx_grid)
     t = torch.arange(num_tiles, device=device)[:, None]
     i = torch.arange(cfg.tile_pix, device=device)[None, :]
     px = (t % gx_grid) * cfg.tile_w + i % cfg.tile_w
-    py = row0 + (t // gx_grid) * cfg.tile_h + i // cfg.tile_w
+    py = row0 + ((t // gx_grid) % gy_grid) * cfg.tile_h + i // cfg.tile_w
     return px.to(torch.float32), py.to(torch.float32)
 
 
 def assemble_image(tile_buf: torch.Tensor, bg: torch.Tensor, width: int,
-                   height: int, cfg: RasterConfig):
+                   height: int, cfg: RasterConfig, n_batch: int | None = None):
     """tile_buf [T, PIX, 16] -> (image [10, H, W], final_T [H, W]), blending
-    the background as forward.cu:397-398: out = C + T_final * bg."""
+    the background as forward.cu:397-398: out = C + T_final * bg.  With
+    ``n_batch`` B, tile_buf [B * T, PIX, 16] -> ([B, 10, H, W], [B, H, W])."""
     gx_grid, gy_grid = cfg.grid(width, height)
     t_final = tile_buf[:, :, CH_TRANS]
     img = tile_buf[:, :, :NUM_CHANNELS] + t_final[:, :, None] * bg[None, None, :NUM_CHANNELS]
-    img = img.reshape(gy_grid, gx_grid, cfg.tile_h, cfg.tile_w, NUM_CHANNELS)
-    img = img.permute(4, 0, 2, 1, 3).reshape(
-        NUM_CHANNELS, gy_grid * cfg.tile_h, gx_grid * cfg.tile_w)
-    t_final = t_final.reshape(gy_grid, gx_grid, cfg.tile_h, cfg.tile_w)
-    t_final = t_final.permute(0, 2, 1, 3).reshape(
-        gy_grid * cfg.tile_h, gx_grid * cfg.tile_w)
-    return img[:, :height, :width], t_final[:height, :width]
+    img = img.reshape(-1, gy_grid, gx_grid, cfg.tile_h, cfg.tile_w, NUM_CHANNELS)
+    img = img.permute(0, 5, 1, 3, 2, 4).reshape(
+        -1, NUM_CHANNELS, gy_grid * cfg.tile_h, gx_grid * cfg.tile_w)
+    t_final = t_final.reshape(-1, gy_grid, gx_grid, cfg.tile_h, cfg.tile_w)
+    t_final = t_final.permute(0, 1, 3, 2, 4).reshape(
+        -1, gy_grid * cfg.tile_h, gx_grid * cfg.tile_w)
+    img, t_final = img[:, :, :height, :width], t_final[:, :height, :width]
+    return (img[0], t_final[0]) if n_batch is None else (img, t_final)
 
 
 def disassemble_cotangent(g_img: torch.Tensor, g_t: torch.Tensor,
                           bg: torch.Tensor, width: int, height: int,
                           cfg: RasterConfig) -> torch.Tensor:
-    """Cotangent of ``assemble_image`` -> tile-buffer cotangent [T, PIX, 16].
-    Channel 15 (final T) takes g_T plus the background term sum_c g_c bg_c."""
+    """Cotangent of ``assemble_image`` -> tile-buffer cotangent [T, PIX, 16]
+    (g_img [10, H, W], g_t [H, W]; or [B, 10, H, W], [B, H, W] ->
+    [B * T, PIX, 16]).  Channel 15 (final T) takes g_T plus the background
+    term sum_c g_c bg_c."""
     gx_grid, gy_grid = cfg.grid(width, height)
     hp, wp = gy_grid * cfg.tile_h, gx_grid * cfg.tile_w
     g_img = torch.nn.functional.pad(g_img, (0, wp - width, 0, hp - height))
     g_t = torch.nn.functional.pad(g_t, (0, wp - width, 0, hp - height))
-    gi = g_img.reshape(NUM_CHANNELS, gy_grid, cfg.tile_h, gx_grid, cfg.tile_w)
-    gi = gi.permute(1, 3, 2, 4, 0).reshape(-1, cfg.tile_pix, NUM_CHANNELS)
-    gt = g_t.reshape(gy_grid, cfg.tile_h, gx_grid, cfg.tile_w)
-    gt = gt.permute(0, 2, 1, 3).reshape(-1, cfg.tile_pix)
+    gi = g_img.reshape(-1, NUM_CHANNELS, gy_grid, cfg.tile_h, gx_grid, cfg.tile_w)
+    gi = gi.permute(0, 2, 4, 3, 5, 1).reshape(-1, cfg.tile_pix, NUM_CHANNELS)
+    gt = g_t.reshape(-1, gy_grid, cfg.tile_h, gx_grid, cfg.tile_w)
+    gt = gt.permute(0, 1, 3, 2, 4).reshape(-1, cfg.tile_pix)
     g15 = gt + torch.einsum("tpc,c->tp", gi, bg[:NUM_CHANNELS])
     zeros = torch.zeros(gi.shape[:2] + (PAD_CHANNELS - NUM_CHANNELS - 1,),
                         dtype=gi.dtype, device=gi.device)

@@ -20,10 +20,15 @@ interface (the compilers run at once), at first use, into
 libraries are loaded with ``ctypes``.  Several processes may build at once
 (each writes its own temporary file and renames it into place).
 
-A grid may cover a window of an image's rows, from ``row0`` (a whole
-number of tile rows) on: the pixel coordinates stay the image's, so a
-window's tiles are the whole image's render bit for bit (the tile-row mesh
-step, ``parallel/tile_parallel.py``).
+A grid may hold a batch of B images of the same size, stacked as a
+virtual grid of B * gy tile rows (camera b's rows [b * gy, (b + 1) * gy)):
+the kernels take each tile's row within its image as (tile // gx) % gy,
+as the TPU kernels do, and B is the number of tiles over gx * gy
+(``rasterize_batched``).  Or a grid may cover a window of one image's rows,
+from ``row0`` (a whole number of tile rows) on: the pixel coordinates stay
+the image's, so a window's tiles are the whole image's render bit for bit
+(the tile-row mesh step, ``parallel/tile_parallel.py``).  Not both.  Blocks
+take the tiles of all B images heaviest first.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain PyTorch version from ``plain_core.py``.  Each launch adds one to
@@ -52,9 +57,9 @@ SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
 # takes the stream last and returns cudaGetLastError()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    "raster_fwd": ("raster_fwd", [_P] * 5 + [_I] * 6),
-    "raster_warp_masks": ("raster_fwd", [_P] * 4 + [_I] * 6),
-    "raster_bwd": ("raster_bwd", [_P] * 7 + [_I] * 6),
+    "raster_fwd": ("raster_fwd", [_P] * 5 + [_I] * 7),
+    "raster_warp_masks": ("raster_fwd", [_P] * 4 + [_I] * 7),
+    "raster_bwd": ("raster_bwd", [_P] * 7 + [_I] * 7),
     "raster_probe": ("raster_probe", [_P] * 5 + [_I] * 5),
     "raster_probe_grid_only": ("raster_probe", [_P] * 5 + [_I] * 5),
 }
@@ -173,17 +178,20 @@ def _check_layout(payload, chunk_start, nchunks, cfg):
             raise ValueError("kernel inputs lie on different devices")
 
 
-def _grid_x(num_tiles: int, width: int, height: int, cfg) -> int:
+def _grid(num_tiles: int, width: int, height: int, cfg: C.RasterConfig,
+         row0: int = 0) -> tuple[int, int]:
+    """(gx, gy), the tile columns and rows of one image, of a layout of
+    ``num_tiles`` tiles: a whole number B >= 1 of images, and ``row0`` only
+    with B = 1.  Raises ValueError otherwise."""
     gx, gy = cfg.grid(width, height)
-    if num_tiles != gx * gy:
-        raise ValueError(f"{num_tiles} tile ranges for a {gx}x{gy} grid")
-    return gx
-
-
-def _row0(row0: int, cfg) -> int:
+    if num_tiles < 1 or num_tiles % (gx * gy):
+        raise ValueError(f"{num_tiles} tile ranges for images of {gx}x{gy} tiles")
     if row0 < 0 or row0 % cfg.tile_h:
         raise ValueError(f"row0 {row0} is not a whole number of {cfg.tile_h}-row tiles")
-    return row0
+    if row0 and num_tiles > gx * gy:
+        raise ValueError(f"row0 {row0} with a batch of {num_tiles // (gx * gy)} images: "
+                         "a grid is a batch of whole images or a window of one")
+    return gx, gy
 
 
 def _launch(entry: str, *args) -> None:
@@ -208,18 +216,18 @@ def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                nchunks: torch.Tensor, width: int, height: int,
                cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
     """Compositing forward -> tile_buf [T, PIX, 16]."""
+    num_tiles = chunk_start.shape[0]
+    gx, gy = _grid(num_tiles, width, height, cfg, row0)
     if not payload.is_cuda:
         return plain_core.raster_fwd_plain(payload, chunk_start, nchunks,
                                            width, height, cfg, row0=row0)
     _check_layout(payload, chunk_start, nchunks, cfg)
-    num_tiles = chunk_start.shape[0]
-    gx = _grid_x(num_tiles, width, height, cfg)
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
     tile_order = heavy_first(nchunks)
     _launch("raster_fwd", payload.data_ptr(), chunk_start.data_ptr(),
             nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles,
-            gx, cfg.tile_w, cfg.tile_h, cfg.chunk, _row0(row0, cfg),
+            gx, gy, cfg.tile_w, cfg.tile_h, cfg.chunk, row0,
             torch.cuda.current_stream(payload.device).cuda_stream)
     return tile_buf
 
@@ -230,17 +238,17 @@ def warp_masks(payload: torch.Tensor, chunk_start: torch.Tensor,
     """The per-warp cull as the kernels' staging computes it -> masks
     [TC, CH] int64 in [0, 2^32) (0 for chunks in no tile's range): the
     card's side of ``plain_core.warp_masks_plain``."""
+    num_tiles = chunk_start.shape[0]
+    gx, gy = _grid(num_tiles, width, height, cfg, row0)
     if not payload.is_cuda:
         return plain_core.warp_masks_plain(payload, chunk_start, nchunks, width, cfg,
-                                           row0=row0)
+                                           row0=row0, grid_y=gy)
     _check_layout(payload, chunk_start, nchunks, cfg)
-    num_tiles = chunk_start.shape[0]
-    gx = _grid_x(num_tiles, width, height, cfg)
     masks = torch.zeros((payload.shape[0], cfg.chunk), dtype=torch.int32,
                         device=payload.device)
     _launch("raster_warp_masks", payload.data_ptr(), chunk_start.data_ptr(),
-            nchunks.data_ptr(), masks.data_ptr(), num_tiles, gx, cfg.tile_w,
-            cfg.tile_h, cfg.chunk, _row0(row0, cfg),
+            nchunks.data_ptr(), masks.data_ptr(), num_tiles, gx, gy, cfg.tile_w,
+            cfg.tile_h, cfg.chunk, row0,
             torch.cuda.current_stream(payload.device).cuda_stream)
     return masks.long() & 0xFFFFFFFF
 
@@ -251,13 +259,13 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
                cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
     """Compositing backward -> dpay [TC, 16, CH] (zero where no tile
     reaches)."""
+    num_tiles = chunk_start.shape[0]
+    gx, gy = _grid(num_tiles, width, height, cfg, row0)
     if not payload.is_cuda:
         return plain_core.raster_bwd_plain(payload, chunk_start, nchunks,
                                            tile_buf, gbuf, width, height, cfg,
                                            row0=row0)
     _check_layout(payload, chunk_start, nchunks, cfg)
-    num_tiles = chunk_start.shape[0]
-    gx = _grid_x(num_tiles, width, height, cfg)
     buf_shape = (num_tiles, cfg.tile_pix, C.PAD_CHANNELS)
     _check("tile_buf", tile_buf, torch.float32, buf_shape)
     _check("gbuf", gbuf, torch.float32, buf_shape)
@@ -266,8 +274,8 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
     tile_order = heavy_first(nchunks)
     _launch("raster_bwd", payload.data_ptr(), chunk_start.data_ptr(),
             nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
-            dpay.data_ptr(), num_tiles, gx, cfg.tile_w, cfg.tile_h, cfg.chunk,
-            _row0(row0, cfg), torch.cuda.current_stream(payload.device).cuda_stream)
+            dpay.data_ptr(), num_tiles, gx, gy, cfg.tile_w, cfg.tile_h, cfg.chunk,
+            row0, torch.cuda.current_stream(payload.device).cuda_stream)
     return dpay
 
 
@@ -286,7 +294,10 @@ def raster_probe(payload: torch.Tensor, chunk_start: torch.Tensor,
         return plain_core.raster_probe_plain(payload, chunk_start, nchunks, cfg)
     _check_layout(payload, chunk_start, nchunks, cfg)
     num_tiles = chunk_start.shape[0]
-    gx = _grid_x(num_tiles, width, height, cfg)
+    gx, gy = _grid(num_tiles, width, height, cfg)
+    if num_tiles != gx * gy:
+        raise ValueError(f"raster_probe: {num_tiles} tile ranges for one image of "
+                         f"{gx}x{gy} tiles")
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
     tile_order = heavy_first(nchunks)

@@ -83,11 +83,12 @@ def raster_fwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
     pairs this input needs: ``visited`` (evaluated before the pixel stops)
     and ``contrib`` (blended); given the per-warp cull ``masks`` [TC, CH]
     (``warp_masks_plain``), also ``kept``: the visited pairs whose warp's
-    bit is set, the pairs the kernels must evaluate.  The grid covers the
-    image's rows from ``row0`` on."""
+    bit is set, the pairs the kernels must evaluate.  The grid holds a
+    batch of images of ``height`` rows, or covers one image's rows from
+    ``row0`` on (``common.pixel_coords``)."""
     num_tiles = chunk_start.shape[0]
     dev = payload.device
-    px, py = C.pixel_coords(num_tiles, width, cfg, dev, row0)
+    px, py = C.pixel_coords(num_tiles, width, cfg, dev, row0, cfg.grid(width, height)[1])
     acc = torch.zeros((num_tiles, cfg.tile_pix, C.NUM_CHANNELS), device=dev)
     walk = _Walk(num_tiles, cfg.tile_pix, dev)
     cs, nc = chunk_start.long(), nchunks.long()
@@ -155,7 +156,7 @@ def raster_bwd_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
     (backward.cu:502-558)."""
     num_tiles = chunk_start.shape[0]
     dev = payload.device
-    px, py = C.pixel_coords(num_tiles, width, cfg, dev, row0)
+    px, py = C.pixel_coords(num_tiles, width, cfg, dev, row0, cfg.grid(width, height)[1])
     total = torch.sum(gbuf * tile_buf, dim=-1)                    # [T, PIX]
     prefix = torch.zeros((num_tiles, cfg.tile_pix), device=dev)
     walk = _Walk(num_tiles, cfg.tile_pix, dev)
@@ -206,25 +207,28 @@ def warp_of_pixel(cfg: C.RasterConfig) -> torch.Tensor:
 
 def warp_masks_plain(payload: torch.Tensor, chunk_start: torch.Tensor,
                      nchunks: torch.Tensor, width: int,
-                     cfg: C.RasterConfig, row0: int = 0) -> torch.Tensor:
+                     cfg: C.RasterConfig, row0: int = 0,
+                     grid_y: int | None = None) -> torch.Tensor:
     """The kernels' per-warp cull -> masks [TC, CH] int64 (bit w set: warp
     w walks the instance; 0 for chunks in no tile's range).  The same
     float64 operations in the same order as ``warp_mask`` in
     ``csrc/raster_common.cuh``, which states why the box holds every pair
-    the kernels' float test accepts."""
+    the kernels' float test accepts.  ``grid_y``: the tile rows of one
+    image of a batch (None: the layout is one image)."""
     tc, _, ch = payload.shape
     dev = payload.device
     nwx, nwy = cfg.tile_w // FOOT_W, cfg.tile_h // FOOT_H
     all_bits = (1 << (nwx * nwy)) - 1
     num_tiles = chunk_start.shape[0]
     gx_grid, _ = cfg.grid(width, 1)
+    gy_grid = grid_y or -(-num_tiles // gx_grid)
     nc = nchunks.long()
     tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev), nc)
     first = torch.repeat_interleave(chunk_start.long() - (torch.cumsum(nc, 0) - nc), nc)
     chunks = first + torch.arange(tile_of.shape[0], device=dev)
     geo = payload[chunks, :6]                                   # [n, 6, CH] f32
     x0 = ((tile_of % gx_grid) * cfg.tile_w)[:, None]
-    y0 = (row0 + (tile_of // gx_grid) * cfg.tile_h)[:, None]
+    y0 = (row0 + ((tile_of // gx_grid) % gy_grid) * cfg.tile_h)[:, None]
     X, Y, A, B, Cc, O = (geo[:, r].double() for r in range(6))
     tame = ((X.abs() < CULL_MAX_POS) & (Y.abs() < CULL_MAX_POS)
             & (A.abs() < CULL_MAX_VAL) & (B.abs() < CULL_MAX_VAL)

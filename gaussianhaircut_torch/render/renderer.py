@@ -18,7 +18,7 @@ from gaussianhaircut_torch.models import gaussian_model as gm
 from gaussianhaircut_torch.ops import projection as proj
 from gaussianhaircut_torch.ops import sh as sh_ops
 from gaussianhaircut_torch.ops.quaternion import build_rotation, normalize
-from gaussianhaircut_torch.ops.rasterize.api import rasterize
+from gaussianhaircut_torch.ops.rasterize.api import rasterize, rasterize_batched
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 
 
@@ -93,6 +93,35 @@ def render_fields(fields: GaussianFields, active_sh_degree: int,
     out = rasterize(ndc, conic, colors, opacity, depth, valid, bg,
                     cam.width, cam.height, cfg)
     decoded = decode_render10(out["render"])
+    decoded.update({
+        "final_T": out["final_T"],
+        "visibility_filter": out["visibility"],
+        "radii": out["radii"],
+        "num_rendered": out["num_rendered"],
+    })
+    return decoded
+
+
+def render_fields_batched(fields: GaussianFields, active_sh_degree: int,
+                          cams: list, bg: torch.Tensor, cfg: RasterConfig | None = None,
+                          viewspace_batch: torch.Tensor | None = None) -> dict:
+    """Batched-camera render: the precompute of each camera of ``cams``
+    (``CameraGeom``s of one size), then one ``rasterize_batched`` over all
+    of them, and the channel decode.  ``viewspace_batch`` [B, P, 3]
+    replaces the viewspace port camera by camera, so that its gradient
+    comes back per camera (the densify statistics read each camera's on its
+    own).  Returns the decoded dict with a leading [B] axis on every image
+    and per-Gaussian output; ``num_rendered`` is the total over cameras."""
+    per_cam = []
+    for b, cam in enumerate(cams):
+        f = (fields if viewspace_batch is None
+             else dataclasses.replace(fields, viewspace=viewspace_batch[b]))
+        per_cam.append(prepare_raster_inputs(f, active_sh_degree, cam))
+    ndc, conic, colors, opacity, depth, valid = (torch.stack(x) for x in zip(*per_cam))
+    out = rasterize_batched(ndc, conic, colors, opacity, depth, valid, bg,
+                            cams[0].width, cams[0].height, cfg)
+    per_image = [decode_render10(r) for r in out["render"]]
+    decoded = {k: torch.stack([d[k] for d in per_image]) for k in per_image[0]}
     decoded.update({
         "final_T": out["final_T"],
         "visibility_filter": out["visibility"],

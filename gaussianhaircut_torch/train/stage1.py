@@ -11,11 +11,12 @@ Loss stack (train_gaussians.py:120-140):
        + lambda_dmask * L1(mask2, gt_mask2)
        + lambda_dorient * OR(orient_angle | conf, weighted by gt conf, hair-mask)
 
-Ported: the single-camera step, the loop around it with the live viewer's
-poll, evaluation, PLY and npz checkpoints (the JAX package's key names, so
-each package reads the other's) and the camera pickles stages 2 and 3 read,
-and the multi-device mesh step behind ``mesh_spec`` (``parallel/``).  The
-batched-camera step is not ported.
+Ported: the single-camera step, the batched-camera step
+(``train_step_batched``: B cameras in one launch of each compositing
+kernel), the loop around them with the live viewer's poll, evaluation, PLY
+and npz checkpoints (the JAX package's key names, so each package reads the
+other's) and the camera pickles stages 2 and 3 read, and the multi-device
+mesh step behind ``mesh_spec`` (``parallel/``).
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from gaussianhaircut_torch.ops.rasterize import cuda_core
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.ops.ssim import ssim
 from gaussianhaircut_torch.render import network_gui
-from gaussianhaircut_torch.render.renderer import default_background, render
+from gaussianhaircut_torch.render.renderer import (
+    default_background, fields_from_params, render, render_fields_batched)
 from gaussianhaircut_torch.scene.cameras import CameraBatch, CameraResiduals, camera_geom
 from gaussianhaircut_torch.train import densify, optim
 from gaussianhaircut_torch.utils.image import vis_orient
@@ -207,6 +209,75 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
                                 trainable_cameras=trainable_cameras,
                                 trainable_intrinsics=trainable_intrinsics)
     metrics = {k: v.detach() for k, v in parts.items()}
+    metrics["num_rendered"] = out["num_rendered"]
+    metrics["grads_ok"] = ok
+    return new_state, metrics
+
+
+def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
+                       cam_idxs, *, active_sh_degree: int, width: int, height: int,
+                       raster_cfg: RasterConfig, opt_cfg: OptimizationConfig,
+                       trainable_cameras: bool, trainable_intrinsics: bool,
+                       use_barf: bool, white_background: bool):
+    """One stage-1 step on the B distinct cameras ``cam_idxs``, all B
+    rendered by one ``rasterize_batched`` (one launch of each compositing
+    kernel), then one update: the single-process twin of the camera
+    data-parallel mesh step (the JAX package's ``train_step_batched``).
+
+    The loss is the sum over cameras; the Gaussian gradients are divided by
+    B (the camera mean), the camera-residual rows keep each camera's
+    gradient at full strength (``_camera_adam`` on the B drawn rows), and
+    the densify statistics add up as over B single steps, camera by camera
+    (``densify.add_stats``).  The viewspace port gets a row per camera, so
+    each camera's gradient comes back on its own; the Adam moments of the
+    (frozen) viewspace take their camera mean as the mesh step's do, where
+    the JAX step gives them zero.  At B = 1 this is ``train_step`` bit for
+    bit.  Returns (new_state, metrics): the loss terms averaged over
+    cameras, ``num_rendered`` the total over them (an int)."""
+    cam_idxs = [int(i) for i in cam_idxs]
+    n = len(cam_idxs)
+    if n < 1 or len(set(cam_idxs)) != n:
+        raise ValueError(f"cam_idxs {cam_idxs}: a batch needs distinct cameras")
+    device = state.model.params.xyz.device
+    bg = default_background(white_background, device)
+    alive = state.model.aux.alive
+    params = state.model.params
+    per_camera_vs = params.replace(
+        viewspace=params.viewspace.expand(n, -1, -1).contiguous())
+    vs_state = dataclasses.replace(state, model=state.model.replace(params=per_camera_vs))
+
+    def forward(params, cam_res):
+        cams = [camera_geom(cam_batch.colmap_transform[i], cam_batch.fovx[i],
+                            cam_batch.fovy[i], width, height, cam_res, i,
+                            use_barf=use_barf, trainable_cameras=trainable_cameras,
+                            trainable_intrinsics=trainable_intrinsics) for i in cam_idxs]
+        out = render_fields_batched(fields_from_params(params, alive), active_sh_degree,
+                                    cams, bg, raster_cfg, viewspace_batch=params.viewspace)
+        losses, parts = [], []
+        for b, i in enumerate(cam_idxs):
+            loss, p = compute_losses({k: out[k][b] for k in ("render", "mask", "orient_angle",
+                                                             "orient_conf")},
+                                     gt.image[i], gt.mask[i], gt.orient_angle[i],
+                                     gt.orient_conf[i], opt_cfg)
+            losses.append(loss)
+            parts.append(p)
+        return torch.stack(losses).sum(), (parts, out)
+
+    gparams, gcam, (parts, out) = step_grads(vs_state, forward)
+    g_vs = gparams.viewspace                                       # [B, P, 3]
+    gparams = gparams.replace(viewspace=g_vs.sum(0)).map(lambda g: g / n)
+    # the densify statistics as over B single steps, one camera after another
+    safe_vs = torch.where(torch.isfinite(g_vs), g_vs, torch.zeros_like(g_vs))
+    new_aux = state.model.aux
+    for b in range(n):
+        new_aux = densify.add_stats(new_aux, safe_vs[b], out["radii"][b],
+                                    out["visibility_filter"][b])
+    drawn = torch.zeros(len(state.cam_opt.count), device=device)
+    drawn[cam_idxs] = 1.0
+    new_state, ok = apply_grads(state, gparams, gcam, new_aux, drawn, opt_cfg=opt_cfg,
+                                trainable_cameras=trainable_cameras,
+                                trainable_intrinsics=trainable_intrinsics)
+    metrics = {k: torch.stack([p[k] for p in parts]).detach().mean() for k in parts[0]}
     metrics["num_rendered"] = out["num_rendered"]
     metrics["grads_ok"] = ok
     return new_state, metrics
@@ -499,6 +570,13 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     there is no occupancy to log.  ``start_checkpoint`` resumes from a
     checkpoint of either package, with its slot capacity.
 
+    ``camera_batch`` B > 1 runs ``train_step_batched`` on B distinct
+    cameras per iteration (drawn as the JAX package draws them: from the
+    epoch stack, a camera already in the batch put back into the stack),
+    the camera-mean gradient of one process and one launch of each kernel;
+    it logs ``num_rendered`` totalled over the batch.  It excludes
+    ``mesh_spec``.
+
     ``mesh_spec`` "DATAxTILE" (e.g. "4x2") runs the multi-device step of
     ``parallel/tile_parallel`` on a (camera, tile-row) process mesh, one
     process per rank (``parallel/mesh.py``); each iteration then takes DATA
@@ -511,10 +589,11 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     the end the ranks
     compare state hashes (a difference raises) and rank 0 prints a
     ``mesh_summary`` JSON line: per rank the step ms, the ms and bytes of
-    its collectives per step and its kernel launches.  The batched-camera
-    step (``camera_batch`` > 1) is not ported."""
-    if camera_batch != 1:
-        raise NotImplementedError("the batched-camera step is not ported")
+    its collectives per step and its kernel launches."""
+    if camera_batch < 1:
+        raise ValueError(f"camera_batch {camera_batch} < 1")
+    if camera_batch > 1 and mesh_spec:
+        raise ValueError("camera_batch and mesh_spec are mutually exclusive")
     mesh = None
     if mesh_spec:
         from gaussianhaircut_torch.parallel.mesh import make_mesh2d, parse_mesh_spec
@@ -524,10 +603,12 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     else:
         device = resolve_device(device)
     main_rank = mesh is None or mesh.rank == 0
-    n_data = mesh.n_data if mesh else 1
+    n_data = mesh.n_data if mesh else camera_batch
     cams = scene.train_cameras
     if not cams:
         raise ValueError("no training cameras")
+    if camera_batch > len(cams):
+        raise ValueError(f"camera_batch {camera_batch} > {len(cams)} cameras")
     width, height = cams[0].width, cams[0].height
     cam_batch = CameraBatch.from_cameras(cams, device)
     gt = GtBatch.from_cameras(cams, device)
@@ -564,14 +645,27 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             new_epoch = list(range(len(cams)))
             rng.shuffle(new_epoch)
             stack = new_epoch + stack
-        idxs = [stack.pop(rng.randrange(len(stack))) for _ in range(n_data)]
+        if camera_batch > 1:
+            # distinct within the batch: a camera drawn twice (the stack can
+            # hold the end of one epoch and a whole next one) is put back
+            idxs = []
+            while len(idxs) < camera_batch:
+                i = stack.pop(rng.randrange(len(stack)))
+                if i in idxs:
+                    stack.insert(0, i)
+                else:
+                    idxs.append(i)
+        else:
+            idxs = [stack.pop(rng.randrange(len(stack))) for _ in range(n_data)]
         step_kw = dict(active_sh_degree=sh_deg, width=width, height=height,
                        raster_cfg=raster_cfg, opt_cfg=opt_cfg,
                        trainable_cameras=model_cfg.trainable_cameras,
                        trainable_intrinsics=model_cfg.trainable_intrinsics,
                        use_barf=model_cfg.use_barf,
                        white_background=model_cfg.white_background)
-        if mesh is None:
+        if camera_batch > 1:
+            state, metrics = train_step_batched(state, cam_batch, gt, idxs, **step_kw)
+        elif mesh is None:
             state, metrics = train_step(state, cam_batch, gt, idxs[0], **step_kw)
         else:
             state, metrics = dp_tp_train_step(mesh, **step_kw)(state, cam_batch, gt, idxs)
