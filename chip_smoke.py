@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,viewer,
                                     cli,mesh,batched,video,strands,kernel_strands,pipeline,masks,
-                                    quality]
+                                    tools,quality]
 
 Drives the port's main paths, the stage-1 trainer and its CLIs, the
 multi-device step on one card, the batched-camera step, the live viewer, the video, the strand
-stack's CLIs, the whole reconstruction pipeline and the mask fallback, on the bench
+stack's CLIs, the whole reconstruction pipeline, the mask fallback and the converter and
+record tools, on the bench
 scene (seeded synthetic point cloud, 100k Gaussians, 960x544, SH degree 3,
 four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
 
@@ -132,7 +133,29 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    scene's raw 1920x1088 views: non-empty hair, face and
                    body masks, hair and face nearly disjoint; seconds per
                    view, split into the min cuts and the rest;
-16. quality     -- the quality harnesses on the card: the strand gate of
+16. tools       -- the five tools of ``gaussianhaircut_torch/tools`` that write the
+                   pretrained weights and the records, on the card: (a) the three
+                   converters' ``--selftest``; (b) ``convert_lpips`` from a full-size
+                   torchvision-layout VGG16 state dict (classifier included, named by
+                   its digest) and LPIPS heads written from ``synthesize_weights(0)``:
+                   the npz equal to that blob key for key, ``--verify`` passing, and
+                   the converted LPIPS on two 960x544 renders of the strand layout
+                   (cameras 0 and 1) within LPIPS_CARD_RTOL of the CPU module's; (c)
+                   ``convert_neuralhaircut_ckpt`` on the upstream twin of
+                   tests/test_prior_convert_e2e.py at length 100 with a twin
+                   denoiser distilled into the default UNet, then ``load_prior``, the
+                   stage-2 warm start (the decoder equal to the prior's) and one
+                   full-width stage-2 step with the converted denoiser frozen: one
+                   launch of each compositing kernel; (d) ``convert_hyperiqa`` on a
+                   hyperIQA twin over the frames of (f), its npz scoring every frame
+                   through ``CnnScorer`` on the card and on the CPU alike; (e)
+                   ``s3_lr_probe`` on the strands phase's stage-2 checkpoint with
+                   ``--iters 20 --lrs 0.2,0.02 --sh_degree 3``: finite results, the
+                   ground truth, evaluations and steps' launches; (f)
+                   ``pipeline_e2e_run.build_scene`` at its defaults (24 views at 1024
+                   px, 10,000 teacher strands of 100): 24 forward launches and the
+                   scene's files; seconds, launches and peak memory of each part;
+17. quality     -- the quality harnesses on the card: the strand gate of
                    tests/test_quality_gate_strands.py at its configuration
                    (96 px, 10 + 3 views, 384 strands x 16, texture 64, 500
                    stage-2 iterations, a 120-step distilled prior, 300
@@ -170,7 +193,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "viewer", "cli",
-          "mesh", "batched", "video", "strands", "kernel_strands", "pipeline", "masks", "quality")
+          "mesh", "batched", "video", "strands", "kernel_strands", "pipeline", "masks", "tools",
+          "quality")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -194,6 +218,13 @@ STAGE2_PSNR_FLOOR, STAGE3_PSNR_FLOOR, CHAMFER_DRIFT_MAX = 22.0, 24.0, 1.5
 QR_TEACHER, QR_RES, QR_VIEWS, QR_TEST_VIEWS, QR_ITERS = 50_000, 512, 20, 4, 3000
 QR_JAX_TEST_PSNR_3000 = 10.6
 DISTILL_STEPS = 100
+# the tools phase: pipeline_e2e_run.build_scene at its defaults, the
+# converters' distillation steps, the lr probe's iterations and lrs, and the
+# LPIPS distance on the card against the CPU's (float32 convolutions both)
+E2E_VIEWS, E2E_RES = 24, 1024
+NH_STEPS, IQA_STEPS = 100, 200
+PROBE_ITERS, PROBE_LRS, PROBE_VIEWS, PROBE_TEST_VIEWS = 20, "0.2,0.02", 16, 4
+LPIPS_CARD_RTOL = 1e-3
 # the viewing and masking entry points: render_video's frames, the viewer's
 # training iterations and the iterations whose poll gets a 960x544 request
 # (the last one with keep_alive), the pipeline views calc_masks runs on
@@ -389,6 +420,8 @@ def main() -> int:
             "batched starts from the scene and the checkpoint the cli phase writes")
     require("masks" not in phases or "pipeline" in phases,
             "masks runs on the views of the pipeline phase's scene")
+    require("tools" not in phases or "strands" in phases,
+            "tools probes the stage-2 checkpoint and renders the layout the strands phase trains")
 
     import torch
     if not torch.cuda.is_available():
@@ -555,31 +588,42 @@ def main() -> int:
                 emit(res)
 
     if "strands" in phases:
-        t0 = time.perf_counter()
-        res, layout = strands_phase(torch, cfg, dev)
-        res["seconds"] = time.perf_counter() - t0
-        for name in ("raster_fwd", "raster_bwd"):
-            kernels[name]["launches_strands"] = {
-                st: res[st]["launches"][name] for st in ("stage2", "stage3")}
-        emit(res)
-        if "kernel_strands" in phases:
+        import tempfile
+        with tempfile.TemporaryDirectory(prefix="ghtools_") as tools_root:
+            ck2 = os.path.join(tools_root, "stage2.npz") if "tools" in phases else None
             t0 = time.perf_counter()
-            res = kernel_strands_phase(torch, layout, cfg)
+            res, layout = strands_phase(torch, cfg, dev, keep_ckpt=ck2)
             res["seconds"] = time.perf_counter() - t0
-            emit(res)
-        if "pipeline" in phases:
-            masks = {}
-            t0 = time.perf_counter()
-            res = pipeline_phase(torch, layout, cfg, then=(
-                lambda data, root: masks.update(masks_phase(torch, data, root)))
-                if "masks" in phases else None)
-            res["seconds"] = time.perf_counter() - t0 - masks.get("seconds", 0.0)
             for name in ("raster_fwd", "raster_bwd"):
-                kernels[name]["launches_pipeline"] = res["launches"][name]
+                kernels[name]["launches_strands"] = {
+                    st: res[st]["launches"][name] for st in ("stage2", "stage3")}
             emit(res)
-            if masks:
-                emit(masks)
-        del layout
+            if "kernel_strands" in phases:
+                t0 = time.perf_counter()
+                res = kernel_strands_phase(torch, layout, cfg)
+                res["seconds"] = time.perf_counter() - t0
+                emit(res)
+            if "pipeline" in phases:
+                masks = {}
+                t0 = time.perf_counter()
+                res = pipeline_phase(torch, layout, cfg, then=(
+                    lambda data, root: masks.update(masks_phase(torch, data, root)))
+                    if "masks" in phases else None)
+                res["seconds"] = time.perf_counter() - t0 - masks.get("seconds", 0.0)
+                for name in ("raster_fwd", "raster_bwd"):
+                    kernels[name]["launches_pipeline"] = res["launches"][name]
+                emit(res)
+                if masks:
+                    emit(masks)
+            if "tools" in phases:
+                t0 = time.perf_counter()
+                res = tools_phase(torch, tools_root, ck2, scene, layout[0], cfg, dev)
+                res["seconds"] = time.perf_counter() - t0
+                for name in ("raster_fwd", "raster_bwd"):
+                    kernels[name]["launches_tools"] = {
+                        part: res[part]["launches"][name] for part in TOOL_PARTS}
+                emit(res)
+            del layout
 
     if "quality" in phases:
         t0 = time.perf_counter()
@@ -1684,12 +1728,14 @@ def strand_scene(scene, center=(0.0, 0.1, 0.0), radius=0.25):
     return scene
 
 
-def strands_phase(torch, cfg, dev):
+def strands_phase(torch, cfg, dev, keep_ckpt=None):
     """The strand stack through its CLIs on the bench scene written to
     disk: a short stage 1, stage 2 at the full-width defaults with the
     self-trained diffusion prior, stage 3 with a fresh SDS prior, and the
     export.  Returns (the phase's record, the final stage-2 layout's
-    fields for kernel_strands)."""
+    fields for kernel_strands); the stage-2 checkpoint is moved to
+    ``keep_ckpt`` when given."""
+    import shutil
     import tempfile
     from gaussianhaircut_torch.cli import (
         export_curves, train_gaussians, train_latent_strands, train_strands)
@@ -1798,6 +1844,8 @@ def strands_phase(torch, cfg, dev):
         require(np.array_equal(pts, stage3.export_points(s3)), "export: not the final strands")
         out["export"] = {"shape": list(pts.shape), "launches": dict(cuda_core.launches),
                          "files": sorted(os.listdir(os.path.join(curves, "strands")))}
+        if keep_ckpt:
+            shutil.move(ck2, keep_ckpt)
     return out, (layout, n_head, cam0)
 
 
@@ -2360,6 +2408,207 @@ def distill_full_width(torch, dev):
             "steps": DISTILL_STEPS, "ms_per_step": ms, "yardstick_loss_before": before,
             "yardstick_loss_after": after, "loss_first20_mean": float(np.mean(losses[:20])),
             "loss_last20_mean": float(np.mean(losses[-20:])), **info, "prior_mb": mb}
+
+
+TOOL_PARTS = ("selftests", "convert_lpips", "build_scene", "convert_hyperiqa",
+              "convert_neuralhaircut_ckpt", "s3_lr_probe")
+
+
+def tools_phase(torch, root, ck2, scene, fields, cfg, dev):
+    """The converter and record tools under ``root`` (module doc, phase
+    tools), each given ``--device`` ``dev``: ``ck2`` is the strands phase's
+    stage-2 checkpoint, ``fields`` its final layout.  Each part's seconds,
+    launches and peak memory."""
+    from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from gaussianhaircut_torch.models import prior_io
+    from gaussianhaircut_torch.ops.lpips import LPIPS, synthesize_weights
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.preprocessing import iqa
+    from gaussianhaircut_torch.render.renderer import default_background, render_fields
+    from gaussianhaircut_torch.tools import (
+        convert_hyperiqa, convert_lpips, convert_neuralhaircut_ckpt, pipeline_e2e_run,
+        s3_lr_probe)
+    from gaussianhaircut_torch.tools.profile_fixed import scene_camera
+    from gaussianhaircut_torch.train import stage2
+    from gaussianhaircut_torch.utils.image import read_png
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import upstream_twins
+
+    on_dev = ["--device", dev.type]
+    out = {"phase": "tools"}
+
+    def part(name, fn):
+        path = list(sys.path)           # an upstream tree goes on the path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        finally:
+            sys.path[:] = path
+        torch.cuda.synchronize()
+        out[name] = dict(res, s=time.perf_counter() - t0, launches=dict(cuda_core.launches),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return out[name]
+
+    def expect_launches(name, fwd, bwd):
+        got = out[name]["launches"]
+        require(got["raster_fwd"] == fwd and got["raster_bwd"] == bwd,
+                f"{name}: launched {got}, expected {fwd} forward and {bwd} backward")
+
+    def selftests():
+        rc = {m.__name__.rsplit(".", 1)[1]: m.selftest(dev)
+              for m in (convert_lpips, convert_neuralhaircut_ckpt, convert_hyperiqa)}
+        require(all(v == 0 for v in rc.values()), f"selftests: {rc}")
+        return {"rc": rc}
+
+    def lpips():
+        blob = synthesize_weights(0)
+        vgg, heads = upstream_twins.write_lpips_files(os.path.join(root, "lpips_src"), blob,
+                                                      classifier=True)
+        named = os.path.join(os.path.dirname(vgg), f"vgg16-{convert_lpips._sha256(vgg)[:8]}.pth")
+        os.rename(vgg, named)
+        npz = os.path.join(root, "lpips_vgg.npz")
+        require(convert_lpips.main(["--vgg16", named, "--lpips_heads", heads, "--out", npz]
+                                   + on_dev) == 0, "convert_lpips: the conversion failed")
+        with np.load(npz) as z:
+            got = dict(z)
+        differ = [k for k, v in blob.items()
+                  if k != "kind" and not (got[k].dtype == v.dtype and np.array_equal(got[k], v))]
+        require(not differ and str(got["kind"]) == "pretrained",
+                f"convert_lpips: keys {differ} differ from the blob the files hold")
+        require(convert_lpips.main(["--verify", npz] + on_dev) == 0,
+                "convert_lpips: --verify failed")
+        bg = default_background(False, dev)
+        with torch.no_grad():
+            a, b = (torch.clamp(render_fields(fields, 3, scene_camera(scene, i, dev), bg,
+                                              cfg)["render"], 0.0, 1.0) for i in (0, 1))
+        card = float(LPIPS(npz, device=dev)(a, b))
+        plain = float(LPIPS(npz, device="cpu")(a.cpu(), b.cpu()))
+        require(plain > 0, "convert_lpips: the two renders are alike, so LPIPS cannot fail")
+        rel = abs(card - plain) / max(abs(plain), 1e-30)
+        require(np.isfinite(card) and rel <= LPIPS_CARD_RTOL,
+                f"convert_lpips: LPIPS {card} on the card, {plain} on the CPU")
+        return {"vgg16_mb": os.path.getsize(named) / 1e6, "render_shape": list(a.shape),
+                "lpips_card": card, "lpips_cpu": plain, "rel_err": rel,
+                "fixture_d_ab": float(got["fixture_d_ab"]),
+                "fixture_d_ac": float(got["fixture_d_ac"])}
+
+    scene_dir = os.path.join(root, "pipeline_scene")
+
+    def build_scene():
+        info = pipeline_e2e_run.build_scene(scene_dir, E2E_VIEWS, E2E_RES, N_STRANDS, STRAND_LEN,
+                                            device=dev)
+        names = sorted(os.listdir(os.path.join(scene_dir, "images")))
+        require(len(names) == E2E_VIEWS and all(
+            os.path.exists(os.path.join(scene_dir, "masks", m, n))
+            for m in ("hair", "face", "body") for n in names),
+            f"build_scene: {len(names)} views, or masks missing")
+        require(sorted(os.listdir(os.path.join(scene_dir, "sparse", "0"))) == [
+            "cameras.txt", "images.txt", "points3D.txt"], "build_scene: the COLMAP text model")
+        img = read_png(os.path.join(scene_dir, "images", names[0]))
+        hair = read_png(os.path.join(scene_dir, "masks", "hair", names[0]))
+        require(img.shape == (E2E_RES, E2E_RES, 3) and hair.any(),
+                f"build_scene: view of shape {img.shape}, hair mask empty: {not hair.any()}")
+        return dict(info, views=len(names), scene_mb=sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(scene_dir) for f in fs) / 1e6)
+
+    def hyperiqa():
+        hq = upstream_twins.write_hyperiqa_tree(root)
+        npz = os.path.join(root, "hyperiqa_distilled.npz")
+        frames = os.path.join(scene_dir, "images")
+        require(convert_hyperiqa.main(["--hyperiqa_dir", hq, "--frames_dir", frames, "--out", npz,
+                                       "--steps", str(IQA_STEPS)] + on_dev) == 0,
+                "convert_hyperiqa: the conversion failed")
+        scorer = iqa.CnnScorer(npz, dev)
+        scores = [scorer.score(read_png(os.path.join(frames, n)))
+                  for n in sorted(os.listdir(frames))]
+        x = torch.as_tensor(convert_hyperiqa.load_frames(frames))
+        with torch.no_grad():
+            card = scorer(x.to(dev)).cpu()
+            plain = iqa.CnnScorer(npz, device="cpu")(x)
+        err = float((card - plain).abs().max() / plain.abs().max())
+        require(scorer.kind == "distilled-hyperiqa" and np.isfinite(scores).all() and err <= 1e-4,
+                f"convert_hyperiqa: kind {scorer.kind}, scores {scores}, card vs CPU {err}")
+        return {"frames": len(scores), "score_min": min(scores), "score_max": max(scores),
+                "card_vs_cpu_rel_err": err}
+
+    def neuralhaircut():
+        nh, ckpt, den = upstream_twins.write_neuralhaircut_tree(root)
+        npz = os.path.join(root, "strand_prior.npz")
+        require(convert_neuralhaircut_ckpt.main([
+            "--neuralhaircut_dir", nh, "--strand_ckpt", ckpt, "--diffusion_ckpt", den,
+            "--out", npz, "--steps", str(NH_STEPS), "--strand_length", str(STRAND_LEN)]
+            + on_dev) == 0,
+            "convert_neuralhaircut_ckpt: the conversion failed")
+        prior = prior_io.load_prior(npz, STRAND_LEN, DIFF_INPUT, dev)
+        require(set(prior) == {"encoder", "decoder", "denoiser"},
+                f"convert_neuralhaircut_ckpt: sections {sorted(prior)}")
+        # the probe's teacher scene at two views; its config: the full-width
+        # defaults at SH degree 1 with the diffusion prior
+        probe = s3_lr_probe.build_probe(s3_lr_probe.parse_args(
+            ["--ckpt", npz, "--views", "2", "--test_views", "0"]), dev)
+        scfg = probe.scfg
+        warm = stage2.warm_start(stage2.init_hair_state(scfg, own_denoiser=False, device=dev),
+                                 prior)
+        require(all(torch.equal(a, b) for a, b in zip(warm.params.decoder.parameters(),
+                                                      prior["decoder"].parameters())),
+                "convert_neuralhaircut_ckpt: the warm start is not the prior's decoder")
+        del warm
+
+        class Scene:
+            train_cameras = probe.train_cameras
+        metrics = []
+        model_cfg = ModelConfig()
+        torch.cuda.synchronize()
+        before = dict(cuda_core.launches)
+        stage2.train(model_cfg, OptimizationConfig(iterations=1, lambda_dmask=0.1,
+                                                   lambda_dorient=0.1, lambda_dsds=0.01,
+                                                   train_orient_conf=False),
+                     scfg, PipelineConfig(), Scene, probe.head_model, probe.pool,
+                     float(probe.radius_scale) / model_cfg.strand_scale,
+                     checkpoint_iterations=(), denoiser=prior["denoiser"], prior=prior,
+                     progress_callback=lambda it, st, m: metrics.append(
+                         {k: float(m[k]) for k in ("total", "l1", "sds")}), device=dev)
+        torch.cuda.synchronize()
+        step = {k: n - before[k] for k, n in cuda_core.launches.items()}
+        require(step["raster_fwd"] == 1 and step["raster_bwd"] == 1,
+                f"convert_neuralhaircut_ckpt: the stage-2 step launched {step}")
+        require(len(metrics) == 1 and all(np.isfinite(v) for v in metrics[0].values()),
+                f"convert_neuralhaircut_ckpt: the stage-2 step's losses {metrics}")
+        return {"prior_mb": os.path.getsize(npz) / 1e6, "stage2_step": metrics[0],
+                "step_launches": step}
+
+    def lr_probe():
+        res = s3_lr_probe.main(["--ckpt", ck2, "--iters", str(PROBE_ITERS), "--lrs", PROBE_LRS,
+                                "--views", str(PROBE_VIEWS), "--test_views",
+                                str(PROBE_TEST_VIEWS), "--sh_degree", "3",
+                                "--out", os.path.join(root, "probe.json")] + on_dev)
+        flat = [v for r in res.values() for k, v in r.items() if k != "l1_train_hist"]
+        flat += [v for r in res.values() for v in r.get("l1_train_hist", [])]
+        require(len(res) == 1 + len(PROBE_LRS.split(",")) and np.isfinite(flat).all(),
+                f"s3_lr_probe: {res}")
+        return res
+
+    part("selftests", selftests)
+    part("convert_lpips", lpips)
+    expect_launches("convert_lpips", 2, 0)               # cameras 0 and 1
+    part("build_scene", build_scene)
+    expect_launches("build_scene", E2E_VIEWS, 0)
+    part("convert_hyperiqa", hyperiqa)
+    part("convert_neuralhaircut_ckpt", neuralhaircut)
+    expect_launches("convert_neuralhaircut_ckpt", 2 + 1, 1)     # two views' ground truth, a step
+    part("s3_lr_probe", lr_probe)
+    # the ground truth at every view, the init and each run's evaluation at
+    # the test views, and each run's steps
+    n_lrs = len(PROBE_LRS.split(","))
+    expect_launches("s3_lr_probe", PROBE_VIEWS + PROBE_TEST_VIEWS + (1 + n_lrs) * PROBE_TEST_VIEWS
+                    + n_lrs * PROBE_ITERS, n_lrs * PROBE_ITERS)
+    expect_launches("selftests", 0, 0)
+    expect_launches("convert_hyperiqa", 0, 0)
+    return out
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ linear heads, averaged over space.  Two quirks of the reference, kept:
   square root (modules/utils.py:6-8).
 
 Weights come from an npz (keys ``conv{i}_w`` [kh, kw, cin, cout] (HWIO,
-mapped to OIHW here), ``conv{i}_b``, ``lin{k}_w`` [c], ``kind``).  Without
+mapped to OIHW here), ``conv{i}_b``, ``lin{k}_w`` [c], ``kind``), as
+``tools/convert_lpips.py`` writes it from torchvision's VGG16 file and the
+LPIPS heads file (``convert_torch_weights``).  Without
 one, ``lpips_or_none(allow_untrained=True)`` gives the deterministic
 He-initialised backbone of ``synthesize_weights`` (numpy ``default_rng``,
 bit-identical to the JAX package's), labelled ``kind = "untrained-seeded"``
@@ -37,6 +39,31 @@ _SCALE = (0.458, 0.448, 0.450)
 _DEFAULT_WEIGHTS = os.environ.get(
     "GHT_LPIPS_WEIGHTS",
     os.path.join(os.path.dirname(__file__), "..", "..", "weights", "lpips_vgg.npz"))
+
+
+# torchvision's VGG16 ``features`` indices of the thirteen convolutions
+_VGG_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def convert_torch_weights(vgg16_path: str, lpips_heads_path: str) -> dict:
+    """torchvision's VGG16 state dict (``vgg16-397923af.pth``: keys
+    ``features.{i}.weight`` [cout, cin, 3, 3] and ``.bias``) and the LPIPS
+    v0.1 'vgg' heads (``vgg.pth``: ``lin{k}.model.1.weight`` [1, C, 1, 1])
+    -> the npz blob (``conv{i}_w`` HWIO, ``conv{i}_b``, ``lin{k}_w`` [C],
+    ``kind = "pretrained"``).  Both files are read as plain tensors
+    (``weights_only``): neither torchvision nor the ``lpips`` package is
+    needed."""
+    vgg = torch.load(vgg16_path, map_location="cpu", weights_only=True)
+    heads = torch.load(lpips_heads_path, map_location="cpu", weights_only=True)
+    np32 = lambda t: t.detach().to(torch.float32).numpy()
+    blob = {}
+    for i, idx in enumerate(_VGG_CONV_INDICES):
+        blob[f"conv{i}_w"] = np32(vgg[f"features.{idx}.weight"]).transpose(2, 3, 1, 0).copy()
+        blob[f"conv{i}_b"] = np32(vgg[f"features.{idx}.bias"])
+    for k in range(len(_VGG_BLOCKS)):
+        blob[f"lin{k}_w"] = np32(heads[f"lin{k}.model.1.weight"]).reshape(-1)
+    blob["kind"] = np.asarray("pretrained")
+    return blob
 
 
 def synthesize_weights(seed: int = 0) -> dict:
@@ -72,8 +99,9 @@ class LPIPS:
             path = weights_path or _DEFAULT_WEIGHTS
             if not os.path.exists(path):
                 raise FileNotFoundError(
-                    f"LPIPS weights not found at {path}; set GHT_LPIPS_WEIGHTS to an npz "
-                    "converted from torchvision's VGG16 and the LPIPS 'vgg' heads")
+                    f"LPIPS weights not found at {path}; write them with python3 -m "
+                    "gaussianhaircut_torch.tools.convert_lpips from torchvision's VGG16 "
+                    "and the LPIPS 'vgg' heads, or set GHT_LPIPS_WEIGHTS")
             with np.load(path) as z:
                 weights = dict(z)
         d = weights

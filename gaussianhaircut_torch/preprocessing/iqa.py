@@ -100,12 +100,17 @@ def _same_pad(n: int, k: int = 3, stride: int = 2) -> tuple[int, int]:
 class CnnScorer(nn.Module):
     """Distilled-hyperIQA convnet: stride-2 3x3 convolutions with ReLU,
     global average pooling and a linear head, on a torch device (CUDA
-    unless ``device="cpu"``)."""
+    unless ``device="cpu"``).  The weights come from the npz at
+    ``weights_path`` or from ``weights``, a dict of its arrays (the
+    converter's student, ``tools/convert_hyperiqa.py``)."""
 
-    def __init__(self, weights_path: str, device=None):
+    def __init__(self, weights_path: str | None = None, device=None, *,
+                 weights: dict | None = None):
         super().__init__()
-        with np.load(weights_path) as z:
-            d = dict(z)
+        if weights is None:
+            with np.load(weights_path) as z:
+                weights = dict(z)
+        d = weights
         self.kind = str(d.get("kind", "distilled-hyperiqa"))
         n_conv = len([k for k in d if k.startswith("conv") and k.endswith("_w")])
         self.convs = nn.ModuleList()

@@ -126,15 +126,17 @@ def teacher_fields(points, rgb, radius_scale, sh_degree: int) -> GaussianFields:
 
 
 def make_head_model(rng: np.random.Generator, capacity: int = 4096, n: int = 2048,
-                    device=None) -> gm.GaussianModelState:
-    """A solid skin-coloured ball under the scalp cap, labelled head."""
+                    device=None, sh_degree: int = 1) -> gm.GaussianModelState:
+    """A solid skin-coloured ball under the scalp cap, labelled head, with
+    SH coefficients up to ``sh_degree``."""
     v = rng.normal(size=(n, 3))
     v /= np.linalg.norm(v, axis=1, keepdims=True)
     r = 0.095 * rng.random(n) ** (1.0 / 3.0)
     pts = (v * r[:, None] + np.array([0, 0.03, 0])).astype(np.float32)
     skin = np.tile(np.array([[0.8, 0.6, 0.5]], np.float32), (n, 1))
     cols = np.clip(skin + rng.normal(scale=0.03, size=(n, 3)), 0, 1)
-    state = gm.create_from_pcd(pts, cols.astype(np.float32), capacity, 1, 1.0, device)
+    state = gm.create_from_pcd(pts, cols.astype(np.float32), capacity, sh_degree, 1.0,
+                               device)
     with torch.no_grad():
         state.params.label.fill_(-6.0)          # head rows
         state.params.opacity.fill_(2.0)         # ~0.88: solid

@@ -1,13 +1,15 @@
 """The port stands alone: no module of ``gaussianhaircut_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax or ``gaussianhaircut_tpu``, nor a
-package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV);
-a CPU step, the 1x1 mesh step of ``parallel/``, the stage-1 CLIs,
-``render_video``, ``train_gaussians --gui`` with a viewer, ``calc_masks``,
-the strand CLIs, the orchestrator on a toy scene, the metrics CLI, the
-scalp stage, the face glue, the synthetic-scene layout and both quality
-harnesses run with all of those unimportable; the entry points never pick
-the CPU on their own; and the kernel wrappers keep CUDA tensors away from
-the plain versions."""
+package the GPU machine lacks (PIL, TensorBoard, plyfile, imageio, OpenCV,
+optax, torchvision, lpips); a CPU step, the 1x1 mesh step of
+``parallel/``, the stage-1 CLIs, ``render_video``, ``train_gaussians --gui``
+with a viewer, ``calc_masks``, the strand CLIs, the orchestrator on a toy
+scene, the metrics CLI, the scalp stage, the face glue, the synthetic-scene
+layout, both quality harnesses, the three converters (their selftests and
+their conversions of fabricated upstream files), the stage-3 lr probe and
+the pipeline record run with all of those unimportable; the entry points
+never pick the CPU on their own; and the kernel wrappers keep CUDA tensors
+away from the plain versions."""
 import ast
 import os
 import subprocess
@@ -22,7 +24,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "gaussianhaircut_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "gaussianhaircut_tpu")
 # not installed on the GPU machine
-ABSENT_ON_CARD = ("PIL", "tensorboard", "plyfile", "imageio", "cv2")
+ABSENT_ON_CARD = ("PIL", "tensorboard", "torch.utils.tensorboard", "plyfile", "imageio", "cv2",
+                  "optax", "torchvision", "lpips")
 
 
 def _port_sources():
@@ -51,13 +54,16 @@ def test_source_imports_no_jax(path):
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_source_imports_nothing_the_card_lacks(path):
     for name in _imported_modules(path):
-        assert not set(name.split(".")) & set(ABSENT_ON_CARD), f"{path} imports {name}"
+        parts = name.split(".")
+        prefixes = {".".join(parts[:i]) for i in range(1, len(parts) + 1)}
+        assert not prefixes & set(ABSENT_ON_CARD), f"{path} imports {name}"
 
 
 _SCRIPT = textwrap.dedent("""
     import importlib, math, os, pkgutil, sys, tempfile, types
     for name in ("jax", "jaxlib", "flax", "PIL", "tensorboard",
-                 "torch.utils.tensorboard", "plyfile", "imageio", "cv2"):
+                 "torch.utils.tensorboard", "plyfile", "imageio", "cv2", "optax",
+                 "torchvision", "lpips"):
         sys.modules[name] = None          # any import of them now fails
     import numpy as np
     import torch
@@ -242,9 +248,117 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
+# the tools as `python -m` runs them; few threads, as the tests share the CPU
+_TOOLS_PREAMBLE = textwrap.dedent("""
+    import json, os, runpy, sys, tempfile
+    for name in ("jax", "jaxlib", "flax", "PIL", "tensorboard",
+                 "torch.utils.tensorboard", "plyfile", "imageio", "cv2", "optax",
+                 "torchvision", "lpips"):
+        sys.modules[name] = None          # any import of them now fails
+    import numpy as np
+    import torch
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    torch.set_num_threads(2)
+
+    def run_tool(name, *argv):
+        sys.argv = [name, *argv]
+        try:
+            runpy.run_module("gaussianhaircut_torch.tools." + name, run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            assert e.code in (0, None), (name, e.code)
+""")
+_TOOLS_EPILOGUE = textwrap.dedent("""
+    assert all(n == 0 for n in cuda_core.launches.values()), cuda_core.launches
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("gaussianhaircut_tpu", "jax", "flax", "PIL", "cv2",
+                                           "torchvision", "lpips", "optax")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("ISOLATED")
+""")
+_SELFTESTS_SCRIPT = _TOOLS_PREAMBLE + textwrap.dedent("""
+    for tool in ("convert_lpips", "convert_neuralhaircut_ckpt", "convert_hyperiqa"):
+        run_tool(tool, "--selftest", "--device", "cpu")
+""") + _TOOLS_EPILOGUE
+_TOOLS_SCRIPT = _TOOLS_PREAMBLE + textwrap.dedent("""
+    from gaussianhaircut_torch.models.textured_strands import TexturedStrandsConfig
+    from gaussianhaircut_torch.tools import pipeline_e2e_run
+    from gaussianhaircut_torch.train import stage2
+    from gaussianhaircut_torch.utils.image import write_png
+
+    root, twins = tempfile.mkdtemp(), os.environ["GHT_TWINS"]
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        write_png(os.path.join(root, "frames", f"{i}.png"),
+                  rng.integers(0, 256, (24, 32, 3), dtype=np.uint8))
+    hair = os.path.join(root, "hair.npz")
+    stage2.save_checkpoint(stage2.init_hair_state(TexturedStrandsConfig(
+        num_strands=8, texture_size=8, strand_length=4, sh_degree=1, pool_size=200),
+        device="cpu"), hair)
+
+    # the three converters on the fabricated upstream files
+    run_tool("convert_lpips", "--vgg16", os.path.join(twins, "vgg16.pth"),
+             "--lpips_heads", os.path.join(twins, "vgg.pth"), "--out",
+             os.path.join(root, "lpips.npz"), "--device", "cpu")
+    run_tool("convert_neuralhaircut_ckpt", "--neuralhaircut_dir",
+             os.path.join(twins, "NeuralHaircut"), "--strand_ckpt",
+             os.path.join(twins, "strand_ckpt.pth"), "--out", os.path.join(root, "prior.npz"),
+             "--steps", "2", "--batch", "8", "--device", "cpu")
+    run_tool("convert_hyperiqa", "--hyperiqa_dir", os.path.join(twins, "hyperIQA"),
+             "--frames_dir", os.path.join(root, "frames"), "--out",
+             os.path.join(root, "iqa.npz"), "--steps", "2", "--batch", "2", "--device", "cpu")
+    # the lr probe and the pipeline record
+    run_tool("s3_lr_probe", "--ckpt", hair, "--iters", "1", "--lrs", "0.2", "--res", "32",
+             "--views", "1", "--test_views", "1", "--num_strands", "8",
+             "--teacher_strands", "8", "--strand_length", "4", "--pool_size", "200",
+             "--texture_size", "8", "--device", "cpu", "--out", os.path.join(root, "probe.json"))
+    pipeline_e2e_run.build_scene(os.path.join(root, "e2e"), 1, 32, 20, 8, device="cpu")
+    assert sorted(os.listdir(os.path.join(root, "e2e", "sparse", "0"))) == [
+        "cameras.txt", "images.txt", "points3D.txt"]
+    # the run itself on a missing scene: the orchestrator stops after its
+    # first stage (no COLMAP model), which the record times
+    run_tool("pipeline_e2e_run", "--skip_build", "--scene",
+             os.path.join(root, "e2e_missing", "scene"), "--out",
+             os.path.join(root, "e2e.json"), "--device", "cpu")
+    for out in ("lpips.npz", "prior.npz", "iqa.npz", "probe.json", "e2e.json"):
+        assert os.path.exists(os.path.join(root, out)), out
+    with open(os.path.join(root, "e2e.json")) as f:
+        rec = json.load(f)
+    assert rec["returncode"] != 0 and list(rec["stage_seconds"]) == ["frames"], rec
+""") + _TOOLS_EPILOGUE
+
 def test_port_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "ISOLATED" in res.stdout
+
+
+def test_converter_selftests_run_without_jax():
+    """The three converters' ``--selftest`` as ``python -m`` runs them, with
+    JAX, PIL, cv2, optax, torchvision and lpips unimportable."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _SELFTESTS_SCRIPT], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "ISOLATED" in res.stdout
+
+
+def test_tools_run_without_jax(tmp_path):
+    """The converters on fabricated upstream files, the lr probe and the
+    pipeline record, as ``python -m`` runs them, with JAX, PIL, cv2, optax,
+    torchvision and lpips unimportable."""
+    from upstream_twins import (
+        write_hyperiqa_tree, write_lpips_files, write_neuralhaircut_tree,
+    )
+    from gaussianhaircut_torch.ops.lpips import synthesize_weights
+    write_lpips_files(str(tmp_path), synthesize_weights(0))
+    write_neuralhaircut_tree(str(tmp_path))
+    write_hyperiqa_tree(str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=REPO, GHT_TWINS=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", _TOOLS_SCRIPT], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "ISOLATED" in res.stdout
@@ -284,8 +398,9 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """No device given means CUDA: without it resolve_device, the CLIs
     (``convert`` aside: it only runs COLMAP; the face glue and the
     synthetic-scene layout use no device), the orientation maps, the winding
-    number, the resize, the scalp stage, the prior and the quality harnesses
-    raise (before reading any file) instead of running on the CPU."""
+    number, the resize, the scalp stage, the prior, the quality harnesses,
+    the converters, the lr probe and the pipeline record raise (before
+    reading any file) instead of running on the CPU."""
     from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
     from gaussianhaircut_torch.device import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -307,7 +422,10 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     missing = str(tmp_path / "missing")
     from gaussianhaircut_torch.models.textured_strands import TexturedStrandsConfig
     from gaussianhaircut_torch.preprocessing import scalp
-    from gaussianhaircut_torch.tools import quality_run, quality_strands
+    from gaussianhaircut_torch.tools import (
+        convert_hyperiqa, convert_lpips, convert_neuralhaircut_ckpt, pipeline_e2e_run,
+        quality_run, quality_strands, s3_lr_probe,
+    )
     from gaussianhaircut_torch.train import prior
     strands = np.zeros((4, 5, 3))
     for call in (lambda: orientation_maps.calc_orientation_map(np.zeros((8, 8, 3))),
@@ -321,6 +439,17 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                                        TexturedStrandsConfig(), steps=1),
                  lambda: quality_run.main(["--iters", "1"]),
                  lambda: quality_strands.main(["--iters2", "1"]),
+                 lambda: convert_lpips.main(["--selftest"]),
+                 lambda: convert_lpips.main(["--vgg16", missing, "--lpips_heads", missing]),
+                 lambda: convert_neuralhaircut_ckpt.main(["--selftest"]),
+                 lambda: convert_neuralhaircut_ckpt.main([
+                     "--neuralhaircut_dir", missing, "--strand_ckpt", missing, "--out", missing]),
+                 lambda: convert_hyperiqa.main(["--selftest"]),
+                 lambda: convert_hyperiqa.main(["--hyperiqa_dir", missing, "--frames_dir",
+                                                missing, "--out", missing]),
+                 lambda: s3_lr_probe.main(["--ckpt", missing]),
+                 lambda: pipeline_e2e_run.main(["--scene", missing]),
+                 lambda: pipeline_e2e_run.build_scene(missing, 1, 32, 20, 8),
                  lambda: scene_tools.mesh_sdf_sign(np.zeros((2, 3)), sphere_mesh(n_lat=4,
                                                                                   n_lon=4)),
                  lambda: scene_tools.resize_images(missing),
