@@ -43,7 +43,7 @@ from gaussianhaircut_torch.tools import convert_hyperiqa as t_hiqa
 from gaussianhaircut_torch.tools import convert_lpips as t_lpips
 from gaussianhaircut_torch.tools import convert_neuralhaircut_ckpt as t_nh
 from gaussianhaircut_torch.train import stage2
-from upstream_twins import (
+from tests.upstream_twins import (
     VGG_CONV_INDICES, write_hyperiqa_tree, write_lpips_files, write_neuralhaircut_tree,
 )
 

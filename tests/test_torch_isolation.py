@@ -248,7 +248,7 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
-# the tools as `python -m` runs them; few threads, as the tests share the CPU
+# the tools as `python -m` runs them
 _TOOLS_PREAMBLE = textwrap.dedent("""
     import json, os, runpy, sys, tempfile
     for name in ("jax", "jaxlib", "flax", "PIL", "tensorboard",
@@ -256,9 +256,7 @@ _TOOLS_PREAMBLE = textwrap.dedent("""
                  "torchvision", "lpips"):
         sys.modules[name] = None          # any import of them now fails
     import numpy as np
-    import torch
     from gaussianhaircut_torch.ops.rasterize import cuda_core
-    torch.set_num_threads(2)
 
     def run_tool(name, *argv):
         sys.argv = [name, *argv]
@@ -350,7 +348,7 @@ def test_tools_run_without_jax(tmp_path):
     """The converters on fabricated upstream files, the lr probe and the
     pipeline record, as ``python -m`` runs them, with JAX, PIL, cv2, optax,
     torchvision and lpips unimportable."""
-    from upstream_twins import (
+    from tests.upstream_twins import (
         write_hyperiqa_tree, write_lpips_files, write_neuralhaircut_tree,
     )
     from gaussianhaircut_torch.ops.lpips import synthesize_weights

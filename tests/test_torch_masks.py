@@ -26,7 +26,7 @@ from gaussianhaircut_tpu.cli import calc_masks as j_calc_masks
 from gaussianhaircut_torch.cli import calc_masks as cm
 from gaussianhaircut_torch.preprocessing.frames import cvt_gray
 from gaussianhaircut_torch.utils.image import read_png, write_png
-from test_masks_fallback import _portrait
+from tests.test_masks_fallback import _portrait
 
 IOU_MIN = 0.9
 

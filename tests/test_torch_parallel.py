@@ -125,10 +125,23 @@ DENSIFY = dict(densify_from_iter=2, densification_interval=3, densify_until_iter
                opacity_reset_interval=100, densify_grad_threshold=1e-6)
 
 
+def _stop(ranks, popens):
+    """Ends whatever still runs (the launcher passes SIGTERM on to its ranks)."""
+    for p in ranks:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for p in popens:
+        if p.poll() is None:
+            p.terminate()
+            p.wait(30)
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, request):
     """Every port job in one spawn of 4 ranks, started first; the JAX steps
-    and loop meanwhile; then the ranks' results."""
+    and loop meanwhile; then the ranks' results.  Whatever still runs at the
+    fixture's teardown is stopped there."""
     root = tmp_path_factory.mktemp("mesh")
     jcams, tcams, pts, cols = _toy(RES)
     jstate = j_stage1.init_train_state(j_gm.create_from_pcd(pts, cols, CAP, 1, 1.0), N_VIEWS,
@@ -150,6 +163,7 @@ def runs(tmp_path_factory):
         start_method="spawn")
     cli = _start_cli(root / "cli")
     builds = _start_kernel_builds(root / "build")
+    request.addfinalizer(lambda: _stop(ctx.processes, [cli[0], *builds[0]]))
 
     jcb, jgt = JCameraBatch.from_cameras(jcams), j_stage1.GtBatch.from_cameras(jcams)
     jcfg = JRasterConfig(tile_w=16, tile_h=16, chunk=32, capacity_mult=24, backend="jnp")
@@ -183,10 +197,10 @@ def runs(tmp_path_factory):
                      for name, (_, spec, cams) in STEPS.items()}
         loop.result()
 
-    while not ctx.join(timeout=300):
+    while not ctx.join():
         pass
-    cli_out = cli[0].communicate(timeout=240)
-    build_rcs = [p.wait(timeout=120) for p in builds[0]]
+    cli_out = cli[0].communicate()
+    build_rcs = [p.wait() for p in builds[0]]
     port = {}
     for i in range(len(jobs)):
         world = math.prod(int(v) for v in jobs[i]["mesh"].split("x"))
@@ -395,7 +409,7 @@ def _start_cli(root):
     from gaussianhaircut_torch.scene.synthetic import bench_scene, write_colmap_scene
     src, model = os.path.join(root, "scene"), os.path.join(root, "model")
     write_colmap_scene(bench_scene(50, 32, 32, 2), src)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
          "-m", "gaussianhaircut_torch.cli.train_gaussians", "--mesh", "2x1", "-s", src,

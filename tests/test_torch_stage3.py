@@ -28,7 +28,7 @@ from gaussianhaircut_torch.models import prior_io
 from gaussianhaircut_torch.models import textured_strands as tts
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.train import stage2, stage3
-from test_torch_stage2 import (  # noqa: F401  (small_jax_unet: a fixture)
+from tests.test_torch_stage2 import (  # noqa: F401  (small_jax_unet: a fixture)
     RADIUS, RES, SCFG, STEP_TOL, compare_files, port_template, small_jax_unet, toy_scene,
 )
 

@@ -21,7 +21,7 @@ import textwrap
 import numpy as np
 import torch
 
-from test_prior_convert_e2e import UPSTREAM_TWIN
+from tests.test_prior_convert_e2e import UPSTREAM_TWIN
 
 # torchvision's VGG16 ``features`` indices of the thirteen convolutions
 VGG_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
