@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,viewer,
                                     cli,mesh,batched,video,strands,kernel_strands,pipeline,masks,
-                                    tools,quality]
+                                    tools,quality,optim_tail]
 
 Drives the port's main paths, the stage-1 trainer and its CLIs, the
 multi-device step on one card, the batched-camera step, the live viewer, the video, the strand
@@ -96,9 +96,11 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    256, UNet 128/256/512 at 32x32) with ``--use_diffusion``
                    for 40 iterations, ``cli.train_strands`` from its
                    checkpoint with ``--use_sds`` for 40, ``cli.export_curves``;
-                   each step launches each compositing kernel once, the
-                   losses are finite, the checkpoints load back and the
-                   exported [10000, 100, 3] strands are finite; per stage
+                   each step launches each compositing kernel once (and in
+                   stage 2 each kernel of the fused optimizer tail once, over
+                   every leaf: ``opt_tail_leaves``), the losses are finite,
+                   the checkpoints load back and the exported [10000, 100, 3]
+                   strands are finite; per stage
                    it/s, instances (the hair rows' share), chunks, the
                    largest tile and peak memory;
 13. kernel_strands -- at the final stage-2 layout of ``strands`` (camera 0,
@@ -171,7 +173,23 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    step, and the prior saved and loaded back through
                    ``models.prior_io``; one forward
                    launch per rendered view and one forward and backward per
-                   training step.
+                   training step;
+18. optim_tail  -- stage 2's fused optimizer tail (``train/optim_tail.py``,
+                   ``csrc/optim_tail.cu``) against its plain version (the
+                   per-leaf composition, on the card) on the strand stage's
+                   194 leaf shapes at the full-width defaults, with the
+                   EMA on the UNet's leaves, for three steps: the clip loose,
+                   the clip binding, a NaN in one leaf (parameters, moments
+                   and count kept, the EMA moved); parameters, moments, EMA
+                   and norm within a relative OPTIM_TAIL_RTOL of the leaf's
+                   largest value, the count exact; then the CUDA-event median
+                   of REPS calls of the kernels' launches alone (on a table
+                   built once), of the whole wrapper and of the plain version,
+                   each one's host time and launches per call, and the bytes
+                   bound.  The kernels line gives the tail's launches counted
+                   in the strands phase's stage-2 run (``launches_strands``,
+                   one of each kernel per step) and the timing loop's own
+                   count apart (``launches_per_timed_call``).
 
 Each phase prints one JSON line; then one line lists every kernel, then the
 card's name and power limit, and the last line is the device record.  Any
@@ -194,7 +212,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "viewer", "cli",
           "mesh", "batched", "video", "strands", "kernel_strands", "pipeline", "masks", "tools",
-          "quality")
+          "quality", "optim_tail")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -218,6 +236,13 @@ STAGE2_PSNR_FLOOR, STAGE3_PSNR_FLOOR, CHAMFER_DRIFT_MAX = 22.0, 24.0, 1.5
 QR_TEACHER, QR_RES, QR_VIEWS, QR_TEST_VIEWS, QR_ITERS = 50_000, 512, 20, 4, 3000
 QR_JAX_TEST_PSNR_3000 = 10.6
 DISTILL_STEPS = 100
+# the optim_tail phase: the kernel against the per-leaf composition, per leaf
+# |got - want| <= OPTIM_TAIL_RTOL * max|want| (only the norm's sum is grouped
+# otherwise), the leaf that gets a NaN, the gradients' scales (global norms
+# ~0.08 and ~8 against the clip of 1)
+OPTIM_TAIL_RTOL = 1e-6
+OPTIM_TAIL_NAN_LEAF = 100
+OPTIM_TAIL_GRAD_SCALES = {"clip_loose": 1e-5, "clip_binding": 1e-3, "nan_leaf": 1e-5}
 # the tools phase: pipeline_e2e_run.build_scene at its defaults, the
 # converters' distillation steps, the lr probe's iterations and lrs, and the
 # LPIPS distance on the card against the CPU's (float32 convolutions both)
@@ -456,6 +481,11 @@ def main() -> int:
                          "source": "gaussianhaircut_torch/csrc/raster_probe.cu",
                          "replaces": "tools/tpu_profile_r4.py:493",
                          "library_ms": None},
+        "optim_tail": {"name": "optim_tail", "route": "cuda",
+                       "source": "gaussianhaircut_torch/csrc/optim_tail.cu",
+                       "replaces": None, "added_for": "stage 2's per-leaf optimizer tail "
+                       "(train/stage2.py: train_step), ~30 launches per leaf",
+                       "library_ms": None},
     }
 
     if "env" in phases:
@@ -472,7 +502,7 @@ def main() -> int:
         emit({"phase": "build", "seconds": round(build_s, 3),
               "ptxas": ptxas_summary(logs),
               "blocks_per_sm": {name: cuda_core.blocks_per_sm(name, cfg)
-                                for name in cuda_core.SOURCES}})
+                                for name in cuda_core.SOURCES if name.startswith("raster")}})
 
     from gaussianhaircut_torch.scene.synthetic import bench_scene
     scene = bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED)
@@ -597,6 +627,10 @@ def main() -> int:
             for name in ("raster_fwd", "raster_bwd"):
                 kernels[name]["launches_strands"] = {
                     st: res[st]["launches"][name] for st in ("stage2", "stage3")}
+            # stage 2 is the fused tail's one caller on the main path
+            kernels["optim_tail"]["launches_strands"] = {
+                k: res["stage2"]["launches"][f"optim_tail_{k}"]
+                for k in ("reduce", "finalize", "update")}
             emit(res)
             if "kernel_strands" in phases:
                 t0 = time.perf_counter()
@@ -634,11 +668,17 @@ def main() -> int:
                                                  for k in ("strand_gate", "quality_run")}
         emit(res)
 
+    if "optim_tail" in phases:
+        emit(optim_tail_phase(torch, dev, kernels))
+
     complete = all(ph in phases for ph in PHASES)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if complete:
         for k in kernels.values():
-            missing = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            # a kernel's launches counted on the main path: stage 1's train()
+            # for the compositing kernels, stage 2 for the optimizer tail
+            counted = "launches_strands" if k["name"] == "optim_tail" else "launches"
+            missing = {counted, "max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by"} - set(k)
             require(not missing, f"{k['name']}: no {sorted(missing)}")
         emit({"kernels": list(kernels.values())})
@@ -649,6 +689,130 @@ def main() -> int:
     emit({"ok": True, "device": device} if complete
          else {"ok": "partial", "phases": phases, "device": device})
     return 0
+
+
+def optim_tail_phase(torch, dev, kernels):
+    """Stage 2's fused optimizer tail against its plain version on the card,
+    then both timed (see the module docstring, item 18)."""
+    from gaussianhaircut_torch.models.diffusion import Denoiser, DiffusionConfig
+    from gaussianhaircut_torch.models.strand_prior import ColorDecoder, StrandDecoder
+    from gaussianhaircut_torch.models.textured_strands import (
+        StrandParams, TexturedStrandsConfig)
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.tools.profile_fixed import cuda_ms
+    from gaussianhaircut_torch.train import optim, optim_tail
+
+    scfg = TexturedStrandsConfig()
+    channels = scfg.geometry_descriptor_size + scfg.appearance_descriptor_size
+    with torch.device("meta"):
+        mods = StrandParams(torch.empty(TEXTURE, TEXTURE, channels),
+                            StrandDecoder(length=STRAND_LEN), ColorDecoder(sh_degree=3),
+                            Denoiser(DiffusionConfig(input_channels=scfg.geometry_descriptor_size,
+                                                     input_size=DIFF_INPUT)))
+    shapes = {n: p.shape for n, p in mods.named_parameters()}
+    ema_names = [n for n in shapes if n.startswith("denoiser.")]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda shape, s: s * torch.randn(shape, generator=gen, device=dev)
+    params = {n: rand(s, 0.05) for n, s in shapes.items()}
+    state = {"params": params,
+             "opt": optim.AdamState({n: rand(s, 1e-4) for n, s in shapes.items()},
+                                    {n: rand(s, 1e-4).square() for n, s in shapes.items()},
+                                    torch.tensor(41, dtype=torch.int32, device=dev)),
+             "ema": {n: params[n] + rand(shapes[n], 1e-3) for n in ema_names}}
+    twin = {"params": {n: p.clone() for n, p in state["params"].items()},
+            "opt": optim.AdamState({n: t.clone() for n, t in state["opt"].mu.items()},
+                                   {n: t.clone() for n, t in state["opt"].nu.items()},
+                                   state["opt"].count.clone()),
+            "ema": {n: e.clone() for n, e in state["ema"].items()}}
+    pairs = lambda st: [(st["ema"][n], st["params"][n]) for n in ema_names]
+    lr, clip = 3e-4, 1.0
+
+    def tensors(st):
+        out = {f"p/{n}": p for n, p in st["params"].items()}
+        out.update({f"m/{n}": t for n, t in st["opt"].mu.items()})
+        out.update({f"v/{n}": t for n, t in st["opt"].nu.items()})
+        out.update({f"e/{n}": e for n, e in st["ema"].items()})
+        return out
+
+    steps = {}
+    for name, scale in OPTIM_TAIL_GRAD_SCALES.items():
+        grads = {n: rand(s, scale) for n, s in shapes.items()}
+        if name == "nan_leaf":
+            grads[list(shapes)[OPTIM_TAIL_NAN_LEAF]].view(-1)[7] = float("nan")
+        before = {k: t.clone() for k, t in tensors(state).items()}
+        count0 = int(state["opt"].count)
+        got = optim_tail.adamw_tail_(state["params"], grads, state["opt"], pairs(state), lr, clip)
+        want = optim_tail.adamw_tail_plain_(twin["params"], grads, twin["opt"], pairs(twin), lr,
+                                            clip)
+        torch.cuda.synchronize()
+        require(got.fused_leaves == len(shapes), f"optim_tail: the kernel covered "
+                f"{got.fused_leaves} of {len(shapes)} leaves")
+        a, b = tensors(state), tensors(twin)
+        rel = {k: float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30))
+               for k in b}
+        worst = max(rel, key=rel.get)
+        gn, gn_want = float(got.grad_norm), float(want)
+        gn_rel = abs(gn - gn_want) / gn_want if np.isfinite(gn_want) else None
+        steps[name] = {"grad_norm": gn, "grad_norm_plain": gn_want, "grad_norm_rel": gn_rel,
+                       "max_rel_err": rel[worst], "worst": worst,
+                       "max_abs_err": max(float((a[k] - b[k]).abs().max()) for k in b),
+                       "bit_identical_tensors": sum(torch.equal(a[k], b[k]) for k in b),
+                       "tensors": len(b), "count": int(state["opt"].count),
+                       "count_plain": int(twin["opt"].count)}
+        require(rel[worst] <= OPTIM_TAIL_RTOL, f"optim_tail {name}: {worst} is {rel[worst]} "
+                f"off its plain version (relative to its largest value)")
+        require(steps[name]["count"] == steps[name]["count_plain"],
+                f"optim_tail {name}: count {steps[name]['count']} against "
+                f"{steps[name]['count_plain']}")
+        if name == "nan_leaf":
+            require(not np.isfinite(gn) and steps[name]["count"] == count0
+                    and all(torch.equal(a[k], before[k]) for k in a if not k.startswith("e/"))
+                    and all(not torch.equal(a[k], before[k]) for k in a if k.startswith("e/")),
+                    "optim_tail nan_leaf: the step moved the parameters, moments or count, or "
+                    "left the EMA")
+        else:
+            require(gn_rel <= OPTIM_TAIL_RTOL, f"optim_tail {name}: grad norm {gn} against "
+                    f"{gn_want}")
+            require(steps[name]["count"] == count0 + 1, f"optim_tail {name}: count not advanced")
+            require((gn > clip) == (name == "clip_binding"),
+                    f"optim_tail {name}: grad norm {gn} against the clip {clip}")
+        del before, grads
+
+    grads = {n: rand(s, OPTIM_TAIL_GRAD_SCALES["clip_loose"]) for n, s in shapes.items()}
+    kernel = lambda: optim_tail.adamw_tail_(state["params"], grads, state["opt"], pairs(state),
+                                            lr, clip)
+    plain = lambda: optim_tail.adamw_tail_plain_(twin["params"], grads, twin["opt"],
+                                                 pairs(twin), lr, clip)
+    # the launches alone, on a table built once: the kernels' device time
+    table, grid = optim_tail.tail_tables(state["params"], grads, state["opt"], pairs(state))
+    launched = lambda: optim_tail.launch_tail(table, grid, state["opt"].count, lr, clip)
+    timing = {}
+    for path, fn in (("kernel", launched), ("wrapper", kernel), ("plain", plain)):
+        ms = cuda_ms(fn, REPS)
+        torch.cuda.synchronize()
+        cuda_core.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        host_ms = (time.perf_counter() - t0) / REPS * 1e3
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_core.launches.items() if v}
+        timing[path] = {"ms": ms, "host_ms_per_call": host_ms,
+                        "launches_per_call": {k: v / REPS for k, v in launches.items()}}
+    n_all = sum(p.numel() for p in params.values())
+    n_ema = sum(params[n].numel() for n in ema_names)
+    # reduce reads g; update reads g, p, m, v, writes p, m, v; the EMA reads and writes e
+    nbytes = 4 * (n_all + 4 * n_all + 3 * n_all + 2 * n_ema)
+    b_ms, b_by = bound_ms(nbytes, 0)
+    ms = timing["kernel"]["ms"]
+    kernels["optim_tail"].update(
+        launches_per_timed_call=timing["kernel"]["launches_per_call"], ms=ms,
+        plain_ms=timing["plain"]["ms"],
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(st["max_abs_err"] for st in steps.values()))
+    return {"phase": "optim_tail", "leaves": len(shapes), "ema_leaves": len(ema_names),
+            "parameters": n_all, "ema_parameters": n_ema, "steps": steps, "timing": timing,
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
 
 
 def probe_phase(torch, binned, cfg, nbytes, kernels):
@@ -1800,11 +1964,18 @@ def strands_phase(torch, cfg, dev, keep_ckpt=None):
                                                                          "orient", "sds")}
                                       for r in recs},
                            "num_rendered_logged": {str(r["step"]): r["num_rendered"] for r in recs},
+                           "opt_tail_leaves_logged": sorted({r.get("opt_tail_leaves")
+                                                             for r in recs}, key=str),
                            "launches": launches,
                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
         s2, out["stage2"] = run("stage 2", train_latent_strands.main,
                                 flags + ["--model_path_hair", hair, "--use_diffusion"], hair)
+        leaves, logged = len(list(s2.params.parameters())), out["stage2"]["opt_tail_leaves_logged"]
+        require(logged == [leaves] and all(out["stage2"]["launches"][f"optim_tail_{k}"] == iters
+                                           for k in ("reduce", "finalize", "update")),
+                f"stage 2: the fused optimizer tail covered {logged} of {leaves} leaves, "
+                f"launches {out['stage2']['launches']}")
         with torch.no_grad():
             hair2, _ = stage2.hair_fields_from_strands(s2.params, pool, scfg, roots, radius)
             layout = stage2.concat_fields(head, hair2)

@@ -1,15 +1,16 @@
-"""Wrappers of the hand-written CUDA kernels of the rasterizer: the
-compositing forward and backward (``gaussianhaircut_torch/csrc/
-raster_{fwd,bwd}.cu``, the port of
+"""Build and launch of the port's hand-written CUDA kernels, and the
+wrappers of the rasterizer's: the compositing forward and backward
+(``gaussianhaircut_torch/csrc/raster_{fwd,bwd}.cu``, the port of
 ``gaussianhaircut_tpu/ops/rasterize/pallas_core.py``), the forward's
 fixed-cost probe (``csrc/raster_probe.cu``, the port of
 ``tools/tpu_profile_r4.py: _h_fixed_probe``) and ``warp_masks``, which
 writes out the per-warp cull all three compute while staging
 (``csrc/raster_common.cuh``) so that it can be held against its plain
-mirror.
+mirror.  Stage 2's optimizer tail (``csrc/optim_tail.cu``) is built and
+launched here too; its wrapper is ``train/optim_tail.py``.
 
-The kernels need tiles whose width is a multiple of 8 and height a
-multiple of 4 (each warp owns an 8x4 pixel block), at most 1024 pixels, and
+The compositing kernels need tiles whose width is a multiple of 8 and
+height a multiple of 4 (each warp owns an 8x4 pixel block), at most 1024 pixels, and
 chunks of a multiple of 32 instances.  Blocks take tiles heaviest first
 (``heavy_first``, computed by each wrapper), which changes no output.
 
@@ -52,16 +53,19 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
-           "raster_probe": "raster_probe.cu"}
+           "raster_probe": "raster_probe.cu", "optim_tail": "optim_tail.cu"}
 # C entry points: name -> (library, argument types before the stream); each
 # takes the stream last and returns cudaGetLastError()
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "raster_fwd": ("raster_fwd", [_P] * 5 + [_I] * 7),
     "raster_warp_masks": ("raster_fwd", [_P] * 4 + [_I] * 7),
     "raster_bwd": ("raster_bwd", [_P] * 7 + [_I] * 7),
     "raster_probe": ("raster_probe", [_P] * 5 + [_I] * 5),
     "raster_probe_grid_only": ("raster_probe", [_P] * 5 + [_I] * 5),
+    "optim_tail_reduce": ("optim_tail", [_P, _I, _P, _P]),
+    "optim_tail_finalize": ("optim_tail", [_P, _P, _I, _P, _P] + [_F] * 3),
+    "optim_tail_update": ("optim_tail", [_P, _I, _P] + [_F] * 9),
 }
 _HEADERS = ("raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -137,18 +141,24 @@ def _load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.argtypes = argtypes + [_P]
             fn.restype = ctypes.c_int
-    occupancy = getattr(lib, name + "_blocks_per_sm")
-    occupancy.argtypes = [_I] * 3
-    occupancy.restype = ctypes.c_int
+    occupancy = getattr(lib, name + "_blocks_per_sm", None)   # the compositing kernels'
+    if occupancy is not None:
+        occupancy.argtypes = [_I] * 3
+        occupancy.restype = ctypes.c_int
     return lib
 
 
-def blocks_per_sm(name: str, cfg: C.RasterConfig) -> int:
-    """Blocks of library ``name``'s kernel resident on one SM at ``cfg``'s
-    launch shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (a key of ``SOURCES``), built if need be."""
     if name not in _libs:
         build()
-    return getattr(_libs[name], name + "_blocks_per_sm")(cfg.tile_w, cfg.tile_h, cfg.chunk)
+    return _libs[name]
+
+
+def blocks_per_sm(name: str, cfg: C.RasterConfig) -> int:
+    """Blocks of compositing library ``name``'s kernel resident on one SM at
+    ``cfg``'s launch shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return getattr(library(name), name + "_blocks_per_sm")(cfg.tile_w, cfg.tile_h, cfg.chunk)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
@@ -194,11 +204,10 @@ def _grid(num_tiles: int, width: int, height: int, cfg: C.RasterConfig,
     return gx, gy
 
 
-def _launch(entry: str, *args) -> None:
-    lib_name = ENTRY_POINTS[entry][0]
-    if lib_name not in _libs:
-        build()
-    err = getattr(_libs[lib_name], entry)(*args)
+def launch(entry: str, *args) -> None:
+    """Call C entry point ``entry`` (a key of ``ENTRY_POINTS``) with ``args``
+    and the stream last; raises on a non-zero return."""
+    err = getattr(library(ENTRY_POINTS[entry][0]), entry)(*args)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
     launches[entry] += 1
@@ -225,10 +234,10 @@ def raster_fwd(payload: torch.Tensor, chunk_start: torch.Tensor,
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
     tile_order = heavy_first(nchunks)
-    _launch("raster_fwd", payload.data_ptr(), chunk_start.data_ptr(),
-            nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles,
-            gx, gy, cfg.tile_w, cfg.tile_h, cfg.chunk, row0,
-            torch.cuda.current_stream(payload.device).cuda_stream)
+    launch("raster_fwd", payload.data_ptr(), chunk_start.data_ptr(),
+           nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles,
+           gx, gy, cfg.tile_w, cfg.tile_h, cfg.chunk, row0,
+           torch.cuda.current_stream(payload.device).cuda_stream)
     return tile_buf
 
 
@@ -246,10 +255,10 @@ def warp_masks(payload: torch.Tensor, chunk_start: torch.Tensor,
     _check_layout(payload, chunk_start, nchunks, cfg)
     masks = torch.zeros((payload.shape[0], cfg.chunk), dtype=torch.int32,
                         device=payload.device)
-    _launch("raster_warp_masks", payload.data_ptr(), chunk_start.data_ptr(),
-            nchunks.data_ptr(), masks.data_ptr(), num_tiles, gx, gy, cfg.tile_w,
-            cfg.tile_h, cfg.chunk, row0,
-            torch.cuda.current_stream(payload.device).cuda_stream)
+    launch("raster_warp_masks", payload.data_ptr(), chunk_start.data_ptr(),
+           nchunks.data_ptr(), masks.data_ptr(), num_tiles, gx, gy, cfg.tile_w,
+           cfg.tile_h, cfg.chunk, row0,
+           torch.cuda.current_stream(payload.device).cuda_stream)
     return masks.long() & 0xFFFFFFFF
 
 
@@ -272,10 +281,10 @@ def raster_bwd(payload: torch.Tensor, chunk_start: torch.Tensor,
     dpay = torch.zeros((payload.shape[0], C.GRAD_ROWS, cfg.chunk),
                        dtype=torch.float32, device=payload.device)
     tile_order = heavy_first(nchunks)
-    _launch("raster_bwd", payload.data_ptr(), chunk_start.data_ptr(),
-            nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
-            dpay.data_ptr(), num_tiles, gx, gy, cfg.tile_w, cfg.tile_h, cfg.chunk,
-            row0, torch.cuda.current_stream(payload.device).cuda_stream)
+    launch("raster_bwd", payload.data_ptr(), chunk_start.data_ptr(),
+           nchunks.data_ptr(), tile_order.data_ptr(), tile_buf.data_ptr(), gbuf.data_ptr(),
+           dpay.data_ptr(), num_tiles, gx, gy, cfg.tile_w, cfg.tile_h, cfg.chunk,
+           row0, torch.cuda.current_stream(payload.device).cuda_stream)
     return dpay
 
 
@@ -301,8 +310,8 @@ def raster_probe(payload: torch.Tensor, chunk_start: torch.Tensor,
     tile_buf = torch.empty((num_tiles, cfg.tile_pix, C.PAD_CHANNELS),
                            dtype=torch.float32, device=payload.device)
     tile_order = heavy_first(nchunks)
-    _launch("raster_probe_grid_only" if grid_only else "raster_probe",
-            payload.data_ptr(), chunk_start.data_ptr(), nchunks.data_ptr(),
-            tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles, gx, cfg.tile_w,
-            cfg.tile_h, cfg.chunk, torch.cuda.current_stream(payload.device).cuda_stream)
+    launch("raster_probe_grid_only" if grid_only else "raster_probe",
+           payload.data_ptr(), chunk_start.data_ptr(), nchunks.data_ptr(),
+           tile_order.data_ptr(), tile_buf.data_ptr(), num_tiles, gx, cfg.tile_w,
+           cfg.tile_h, cfg.chunk, torch.cuda.current_stream(payload.device).cuda_stream)
     return tile_buf

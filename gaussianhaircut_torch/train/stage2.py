@@ -17,8 +17,9 @@ stage-1 poses.
 
 The random draws of a step (the roots, the diffusion sigma and noise) come
 from the state's ``torch.Generator``, or are given as ``Stage2Draws`` (the
-parity tests pass the JAX package's).  The parameters and the EMA are
-updated in place; the optimizer moments are replaced.  The JAX package's
+parity tests pass the JAX package's).  The parameters, the EMA and the
+optimizer state are updated in place, on the card in one fused pass
+(``train/optim_tail.py``).  The JAX package's
 static instance buffer and its grow / shrink loops have no counterpart: the
 binning sizes its buffer from ``num_rendered`` on every call, and
 ``num_rendered`` stays in the metrics.
@@ -55,7 +56,7 @@ from gaussianhaircut_torch.render.renderer import (
     GaussianFields, default_background, render_fields,
 )
 from gaussianhaircut_torch.scene.cameras import CameraBatch, camera_geom
-from gaussianhaircut_torch.train import optim
+from gaussianhaircut_torch.train import optim, optim_tail
 from gaussianhaircut_torch.utils.logger import MetricsLogger
 
 
@@ -259,9 +260,11 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
                raster_cfg: RasterConfig, opt_cfg: OptimizationConfig,
                white_background: bool, base_lr: float = 1e-3,
                total_iters: int = 20000, draws: Stage2Draws | None = None):
-    """One stage-2 step.  Returns (state, metrics): the parameters (and the
-    EMA) are updated in place, the rest is new; metrics hold device scalars
-    and ``num_rendered`` (an int)."""
+    """One stage-2 step.  Returns (state, metrics): the parameters, the EMA
+    and the optimizer state are updated in place (``optim_tail.adamw_tail_``),
+    the rest is new; metrics hold device scalars, ``num_rendered`` and
+    ``opt_tail_leaves`` (ints: the leaves the fused optimizer pass covered, 0
+    on the CPU)."""
     device = state.params.texture.device
     bg = default_background(white_background, device)
     if draws is None:
@@ -285,26 +288,18 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
     grads = {n: torch.zeros_like(p) if g is None else g
              for n, p, g in zip(names, leaves, grads)}
 
-    ok = optim.grads_are_finite(grads)
-    if opt_cfg.hair_grad_clip > 0:
-        grads, parts["grad_norm"] = optim.clip_by_global_norm(grads, opt_cfg.hair_grad_clip)
     # CosineAnnealingLR(T_max=iters, eta_min=1e-4) (gaussian_model_latent_strands.py:519)
     lr = 1e-4 + 0.5 * (base_lr - 1e-4) * (1 + math.cos(math.pi * state.step / total_iters))
-    with torch.no_grad():
-        updates, new_opt = optim.adamw_update(
-            grads, state.opt, {n: p.detach() for n, p in zip(names, leaves)}, lr)
-        # torch.where, not a multiplicative mask (0 * NaN = NaN); a skipped
-        # step keeps the moments and the count
-        for n, p in zip(names, leaves):
-            p.add_(torch.where(ok, updates[n], torch.zeros_like(updates[n])))
-        new_opt = optim.where_ok(ok, new_opt, state.opt)
-        if state.ema is not None:
-            dk = opt_cfg.diffusion_ema_decay
-            for e, p in zip(state.ema.parameters(), state.params.denoiser.parameters()):
-                e.copy_(dk * e + (1.0 - dk) * p)
+    ema_pairs = ([] if state.ema is None else
+                 list(zip(state.ema.parameters(), state.params.denoiser.parameters())))
+    tail = optim_tail.adamw_tail_(dict(zip(names, leaves)), grads, state.opt, ema_pairs, lr,
+                                  opt_cfg.hair_grad_clip, decay=opt_cfg.diffusion_ema_decay)
+    if opt_cfg.hair_grad_clip > 0:
+        parts["grad_norm"] = tail.grad_norm
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["num_rendered"] = out["num_rendered"]
-    return dataclasses.replace(state, opt=new_opt, step=state.step + 1), metrics
+    metrics["opt_tail_leaves"] = tail.fused_leaves
+    return dataclasses.replace(state, step=state.step + 1), metrics
 
 
 def train(model_cfg, opt_cfg: OptimizationConfig, scfg: TexturedStrandsConfig,
