@@ -69,6 +69,7 @@ class _Rasterize(torch.autograd.Function):
         image, t_final = C.assemble_image(tile_buf, bg, width, height, cfg, n_batch)
         info["num_rendered"] = binned.num_rendered
         info["num_rendered_bound"] = binned.num_rendered_bound
+        info["num_rendered_3sigma"] = binned.num_rendered_3sigma
         ctx.binned = binned
         ctx.dims = (width, height, full_height, row0, cfg)
         ctx.save_for_backward(tile_buf, bg, t_final)
@@ -124,14 +125,17 @@ def rasterize(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tensor,
     coordinates.  A window's pixels are the full render's bit for bit
     (alpha tests and early stops included) wherever the Gaussians lie.
     Returns render [10, H, W], final_T [H, W], radii [P] int32,
-    visibility [P] bool and num_rendered (a Python int)."""
+    visibility [P] bool, num_rendered (a Python int) and
+    num_rendered_3sigma (the instances that the reference's 3-sigma tile
+    rect would bin; num_rendered is smaller by what the exact skip saves)."""
     cfg = cfg or C.RasterConfig()
     info: dict = {}
     image, t_final, radii, visibility = _Rasterize.apply(
         ndc, conic, colors, opacity, depth.to(torch.float32), valid, bg,
         width, height, full_height or height, row0, None, cfg, info)
     return {"render": image, "final_T": t_final, "radii": radii,
-            "visibility": visibility, "num_rendered": info["num_rendered"]}
+            "visibility": visibility, "num_rendered": info["num_rendered"],
+            "num_rendered_3sigma": info["num_rendered_3sigma"]}
 
 
 def rasterize_batched(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tensor,
@@ -151,8 +155,9 @@ def rasterize_batched(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tens
     [B, P, 1], depth [B, P], valid [B, P], bg [10] (its gradient sums over
     cameras).  Returns render [B, 10, H, W], final_T [B, H, W], radii
     [B, P] int32, visibility [B, P] bool, num_rendered (the instances over
-    every camera, a Python int) and num_rendered_bound (B times the largest
-    camera's count)."""
+    every camera, a Python int), num_rendered_bound (B times the largest
+    camera's count) and num_rendered_3sigma (as ``rasterize``'s, over every
+    camera)."""
     cfg = cfg or C.RasterConfig()
     b, p = ndc.shape[:2]
     flat = lambda x: x.reshape((b * p,) + tuple(x.shape[2:]))
@@ -162,4 +167,5 @@ def rasterize_batched(ndc: torch.Tensor, conic: torch.Tensor, colors: torch.Tens
         flat(valid), bg, width, height, height, 0, b, cfg, info)
     return {"render": image, "final_T": t_final, "radii": radii,
             "visibility": visibility, "num_rendered": info["num_rendered"],
-            "num_rendered_bound": info["num_rendered_bound"]}
+            "num_rendered_bound": info["num_rendered_bound"],
+            "num_rendered_3sigma": info["num_rendered_3sigma"]}

@@ -69,6 +69,7 @@ class Binned(NamedTuple):
     num_rendered: int            # N, the instance count (over every camera)
     num_tiles: int               # B * tiles per image
     num_rendered_bound: int      # B * the largest camera's count (N at B = 1)
+    num_rendered_3sigma: int     # the instances the 3-sigma rect would bin
 
 
 class Preprocessed(NamedTuple):
@@ -77,6 +78,7 @@ class Preprocessed(NamedTuple):
     tiles_touched: torch.Tensor  # [P] int64
     rect: tuple                  # (min_x, min_y, max_x, max_y) int64 [P]
     valid: torch.Tensor          # [P] bool after all culling
+    tiles_3sigma: torch.Tensor   # [P] int64 tiles of the 3-sigma rect
 
 
 def cov2d_from_conic(conic: torch.Tensor):
@@ -101,10 +103,15 @@ def preprocess(mean_pix: torch.Tensor, conic: torch.Tensor, depth: torch.Tensor,
     rows and clamped to the window, so each of the window's tiles gets the
     image's instances for that tile.
 
-    With ``opacity``, the binned rect shrinks to the exact-skip radius
-    sigma*sqrt(2 ln(255 op)), outside which alpha < 1/255 everywhere (both
-    kernels skip such pixels, so dropping the instances is exact).  The
-    reported ``radius`` keeps the reference's 3-sigma value."""
+    With ``opacity``, the binned rect shrinks to the tiles of the 3-sigma
+    rect that hold a whole pixel within the exact-skip radius
+    sigma*sqrt(2 ln(255 op)), rounded up to a whole pixel: outside that
+    radius alpha < 1/255 (both kernels skip such pixels, so dropping the
+    instances is exact, and the pairs composited are the 3-sigma rect's).
+    The radius is fractional, so its rect is not ``getRect``'s, which would
+    leave out tile k whenever p + r falls in [k tile, k tile + 1).  The
+    reported ``radius`` keeps the reference's 3-sigma value, and
+    ``tiles_3sigma`` the 3-sigma rect's tile count."""
     gx_grid, gy_grid = cfg.grid(width, height)
     if row0 % cfg.tile_h:
         raise ValueError(f"row0 {row0} is not a whole number of {cfg.tile_h}-row tiles")
@@ -132,16 +139,32 @@ def preprocess(mean_pix: torch.Tensor, conic: torch.Tensor, depth: torch.Tensor,
     area3 = (rect3[2] - rect3[0]) * (rect3[3] - rect3[1])
     if opacity is not None:
         fac2 = 2.0 * torch.log(torch.clamp(opacity[:, 0], min=1e-12) * 255.0) / 9.0
-        bin_radius = radius * torch.sqrt(torch.clamp(fac2, 0.0, 1.0))
-        bin_rect = rect(bin_radius)
-        bin_area = (bin_rect[2] - bin_rect[0]) * (bin_rect[3] - bin_rect[1])
+        # not capped at 3 sigma: above opacity e^4.5 / 255 the radius passes
+        # it, and the 3-sigma rect's tiles hold such pixels, which blend; the
+        # ceil leaves room for the kernels' float32 exp at the boundary
+        r_b = torch.ceil(radius * torch.sqrt(torch.clamp(fac2, min=0.0)))
+
+        def cover(p, tile, origin, lo3, hi3):
+            # tiles [lo, hi) of the whole pixels x with |x - p| <= r_b, inside
+            # [lo3, hi3) (float rounding is monotonic, so no such pixel is lost)
+            lo = torch.floor_divide(torch.ceil(p - r_b) - origin, tile).long()
+            hi = torch.floor_divide(p + r_b + (tile - origin), tile).long()
+            lo = torch.maximum(lo, lo3)
+            return lo, torch.maximum(lo, torch.minimum(hi, hi3))
+
+        bmin_x, bmax_x = cover(px, cfg.tile_w, 0, rect3[0], rect3[2])
+        bmin_y, bmax_y = cover(py, cfg.tile_h, row0, rect3[1], rect3[3])
+        bin_rect = (bmin_x, bmin_y, bmax_x, bmax_y)
+        bin_area = (bmax_x - bmin_x) * (bmax_y - bmin_y)
     else:
         bin_rect, bin_area = rect3, area3
 
     bin_valid = valid & (bin_area > 0)
     tiles_touched = torch.where(bin_valid, bin_area, torch.zeros_like(bin_area))
-    radius = torch.where(valid & (area3 > 0), radius, torch.zeros_like(radius))
-    return Preprocessed(mean_pix, radius, tiles_touched, bin_rect, bin_valid)
+    shown = valid & (area3 > 0)
+    radius = torch.where(shown, radius, torch.zeros_like(radius))
+    tiles_3sigma = torch.where(shown, area3, torch.zeros_like(area3))
+    return Preprocessed(mean_pix, radius, tiles_touched, bin_rect, bin_valid, tiles_3sigma)
 
 
 def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
@@ -180,8 +203,10 @@ def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
     counts_g = pre.tiles_touched
     offsets = torch.cumsum(counts_g, 0) - counts_g
     per_camera = counts_g.reshape(n_batch, -1).sum(1)
-    # the one host sync: the total and B * the largest camera's count
-    total, bound = torch.stack([per_camera.sum(), per_camera.max() * n_batch]).tolist()
+    # the one host sync: the total, B * the largest camera's count and the
+    # 3-sigma rect's total (what the exact skip saves)
+    total, bound, total3 = torch.stack([per_camera.sum(), per_camera.max() * n_batch,
+                                        pre.tiles_3sigma.sum()]).tolist()
 
     # --- duplicateWithKeys ---
     gid = torch.repeat_interleave(torch.arange(p, device=dev), counts_g,
@@ -243,7 +268,8 @@ def bin_instances(pre: Preprocessed, mean_pix: torch.Tensor,
                   nchunks=nchunks.to(torch.int32),
                   gid=gid_slot, slot_of_instance=slot_of_instance,
                   gauss_offset=offsets, gauss_count=counts_g,
-                  num_rendered=total, num_tiles=num_tiles, num_rendered_bound=bound)
+                  num_rendered=total, num_tiles=num_tiles, num_rendered_bound=bound,
+                  num_rendered_3sigma=total3)
 
 
 def pixel_coords(num_tiles: int, width: int, cfg: RasterConfig, device, row0: int = 0,

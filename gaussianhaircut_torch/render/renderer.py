@@ -98,6 +98,7 @@ def render_fields(fields: GaussianFields, active_sh_degree: int,
         "visibility_filter": out["visibility"],
         "radii": out["radii"],
         "num_rendered": out["num_rendered"],
+        "num_rendered_3sigma": out["num_rendered_3sigma"],
     })
     return decoded
 
@@ -127,6 +128,7 @@ def render_fields_batched(fields: GaussianFields, active_sh_degree: int,
         "visibility_filter": out["visibility"],
         "radii": out["radii"],
         "num_rendered": out["num_rendered"],
+        "num_rendered_3sigma": out["num_rendered_3sigma"],
     })
     return decoded
 

@@ -184,7 +184,9 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
                trainable_cameras: bool, trainable_intrinsics: bool,
                use_barf: bool, white_background: bool):
     """One stage-1 step on camera ``cam_idx``.  Returns (new_state,
-    metrics); metrics hold device scalars plus ``num_rendered`` (an int)."""
+    metrics); metrics hold device scalars plus ``num_rendered`` and
+    ``num_rendered_3sigma`` (ints: the instances binned, and those that the
+    reference's 3-sigma tile rect would bin)."""
     device = state.model.params.xyz.device
     bg = default_background(white_background, device)
     alive = state.model.aux.alive
@@ -210,6 +212,7 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
                                 trainable_intrinsics=trainable_intrinsics)
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["num_rendered"] = out["num_rendered"]
+    metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
     metrics["grads_ok"] = ok
     return new_state, metrics
 
@@ -233,7 +236,8 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     (frozen) viewspace take their camera mean as the mesh step's do, where
     the JAX step gives them zero.  At B = 1 this is ``train_step`` bit for
     bit.  Returns (new_state, metrics): the loss terms averaged over
-    cameras, ``num_rendered`` the total over them (an int)."""
+    cameras, ``num_rendered`` and ``num_rendered_3sigma`` the totals over
+    them (ints)."""
     cam_idxs = [int(i) for i in cam_idxs]
     n = len(cam_idxs)
     if n < 1 or len(set(cam_idxs)) != n:
@@ -279,6 +283,7 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
                                 trainable_intrinsics=trainable_intrinsics)
     metrics = {k: torch.stack([p[k] for p in parts]).detach().mean() for k in parts[0]}
     metrics["num_rendered"] = out["num_rendered"]
+    metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
     metrics["grads_ok"] = ok
     return new_state, metrics
 

@@ -262,9 +262,10 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
                total_iters: int = 20000, draws: Stage2Draws | None = None):
     """One stage-2 step.  Returns (state, metrics): the parameters, the EMA
     and the optimizer state are updated in place (``optim_tail.adamw_tail_``),
-    the rest is new; metrics hold device scalars, ``num_rendered`` and
-    ``opt_tail_leaves`` (ints: the leaves the fused optimizer pass covered, 0
-    on the CPU)."""
+    the rest is new; metrics hold device scalars, ``num_rendered``,
+    ``num_rendered_3sigma`` (the instances that the reference's 3-sigma tile
+    rect would bin) and ``opt_tail_leaves`` (ints: the leaves the fused
+    optimizer pass covered, 0 on the CPU)."""
     device = state.params.texture.device
     bg = default_background(white_background, device)
     if draws is None:
@@ -298,6 +299,7 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
         parts["grad_norm"] = tail.grad_norm
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["num_rendered"] = out["num_rendered"]
+    metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
     metrics["opt_tail_leaves"] = tail.fused_leaves
     return dataclasses.replace(state, step=state.step + 1), metrics
 

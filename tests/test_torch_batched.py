@@ -38,6 +38,7 @@ from tests.test_torch_parallel import (
     _loop_configs, _port_kw, _toy,
 )
 from tests.test_torch_rasterize import BWD_TOL, FWD_TOL
+from tests.exact_skip import jax_3sigma_binning
 
 W, H, P, B = 48, 40, 96, 3          # image, Gaussians per camera, cameras
 TILE, CHUNK = 16, 32
@@ -100,7 +101,9 @@ def _port_grads(cams, weight, cfg, batched=True):
         grads.append([g.numpy() for g in torch.autograd.grad(loss, one + [bg_b])])
     stacked = {k: torch.stack([o[k] for o in outs]) for k in ("render", "final_T", "radii",
                                                              "visibility")}
-    stacked["num_rendered"] = sum(o["num_rendered"] for o in outs)
+    for k in ("num_rendered", "num_rendered_3sigma"):
+        stacked[k] = sum(o[k] for o in outs)
+    stacked["num_rendered_bound"] = len(outs) * max(o["num_rendered"] for o in outs)
     per_cam = [np.stack(g) for g in zip(*grads)]
     per_cam[-1] = per_cam[-1].sum(0)                     # bg: one leaf for all cameras
     return stacked, per_cam
@@ -117,7 +120,9 @@ def raster_inputs():
 def runs(raster_inputs):
     """The JAX side of every case, compiled in threads: rasterize_batched at
     B=3 with its gradients, train_step_batched at B=2 from the carried
-    state, and train(camera_batch=2) for LOOP_ITERS iterations."""
+    state, and train(camera_batch=2) for LOOP_ITERS iterations; all with
+    the JAX package's 3-sigma binning, whose pairs the port's exact skip
+    composites."""
     cams, weight = raster_inputs
     jcfg = JRasterConfig(tile_w=TILE, tile_h=TILE, chunk=CHUNK, capacity_mult=24,
                          sort_mode="exact", backend="jnp")
@@ -158,7 +163,7 @@ def runs(raster_inputs):
                                      backend=pipe_cfg.raster_backend),
             opt_cfg=opt_cfg, n_batch=len(STEP_CAMS), **STEP_FLAGS))
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with jax_3sigma_binning(), concurrent.futures.ThreadPoolExecutor(2) as pool:
         step = pool.submit(jax_loop_then_step)
         jout, jgrads = jax_raster(*(jnp.asarray(x) for x in (ndc, conic, colors, opacity, BG)))
         jstep = step.result()
@@ -172,7 +177,8 @@ def runs(raster_inputs):
 def test_rasterize_batched_matches_jax(raster_inputs, runs):
     """B=3: the forward and the gradients of a seeded weighted sum w.r.t.
     ndc, conic, colors, opacity and bg against the JAX package's
-    rasterize_batched (jnp backend)."""
+    rasterize_batched (jnp backend, 3-sigma binning), and the 3-sigma
+    instance count."""
     cams, weight = raster_inputs
     out, grads = _port_grads(cams, weight, C.RasterConfig(tile_w=TILE, tile_h=TILE,
                                                            chunk=CHUNK))
@@ -183,14 +189,14 @@ def test_rasterize_batched_matches_jax(raster_inputs, runs):
                                rtol=5e-4, atol=1e-4)
     np.testing.assert_array_equal(out["radii"].numpy(), jout["radii"])
     np.testing.assert_array_equal(out["visibility"].numpy(), jout["visibility"])
-    assert out["num_rendered"] == int(jout["num_rendered"])
-    assert out["num_rendered_bound"] == int(jout["num_rendered_bound"])
+    assert out["num_rendered_3sigma"] == int(jout["num_rendered"]) >= out["num_rendered"]
     for a, b, name in zip(grads, jgrads, ["ndc", "conic", "colors", "opacity", "bg"]):
         np.testing.assert_allclose(a, b, **BWD_TOL, err_msg=name)
 
 
 def test_rasterize_batched_matches_single_calls(raster_inputs):
     """B=3 against three rasterize calls: every output bit for bit, the
+    instance counts (B x the largest camera's count for the bound), the
     gradients within rtol 1e-6 / atol 1e-6 x the largest entry (the float64
     segment scan runs over one longer stream)."""
     cams, weight = raster_inputs
@@ -199,7 +205,8 @@ def test_rasterize_batched_matches_single_calls(raster_inputs):
     ref, ref_grads = _port_grads(cams, weight, cfg, batched=False)
     for k in ("render", "final_T", "radii", "visibility"):
         assert torch.equal(out[k], ref[k]), k
-    assert out["num_rendered"] == ref["num_rendered"]
+    for k in ("num_rendered", "num_rendered_3sigma", "num_rendered_bound"):
+        assert out[k] == ref[k], k
     for a, b, name in zip(grads, ref_grads, ["ndc", "conic", "colors", "opacity", "bg"]):
         assert np.abs(b).max() > 0, name
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6 * np.abs(b).max(), err_msg=name)
@@ -265,7 +272,7 @@ def test_train_step_batched_matches_jax(runs):
     assert bool(tm["grads_ok"]) and bool(jm["grads_ok"])
     for k in ("l1", "ssim", "mask", "orient", "total"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), **METRIC_TOL, err_msg=k)
-    assert tm["num_rendered"] == int(jm["num_rendered"])
+    assert tm["num_rendered_3sigma"] == int(jm["num_rendered"]) >= tm["num_rendered"]
     for name in ("xyz", "opacity", "scaling", "features_dc"):
         np.testing.assert_allclose(getattr(ts.model.params, name).numpy(),
                                    np.asarray(getattr(js.model.params, name)), **PARAM_TOL,
@@ -372,11 +379,13 @@ def test_plain_kernels_take_the_camera_local_row():
     pre = C.preprocess(mean_pix, conic, depth, valid, W, H, cfg, opacity=opacity)
     one = C.bin_instances(pre, mean_pix, conic, opacity, colors, depth, W, H, cfg)
     two_pre = C.Preprocessed(*(torch.cat([x, x]) for x in pre[:3]),
-                             tuple(torch.cat([x, x]) for x in pre.rect), torch.cat([pre.valid] * 2))
+                             tuple(torch.cat([x, x]) for x in pre.rect), torch.cat([pre.valid] * 2),
+                             torch.cat([pre.tiles_3sigma] * 2))
     cat = lambda x: torch.cat([x, x])
     two = C.bin_instances(two_pre, cat(mean_pix), cat(conic), cat(opacity), cat(colors),
                           cat(depth), W, H, cfg, n_batch=2)
     assert two.num_rendered == 2 * one.num_rendered == two.num_rendered_bound
+    assert two.num_rendered_3sigma == 2 * one.num_rendered_3sigma
     lay1 = (one.payload, one.chunk_start, one.nchunks)
     lay2 = (two.payload, two.chunk_start, two.nchunks)
     buf1 = cuda_core.raster_fwd(*lay1, W, H, cfg)

@@ -33,6 +33,7 @@ from gaussianhaircut_torch.scene.cameras import CameraBatch
 from gaussianhaircut_torch.scene.synthetic import bench_scene, write_colmap_scene
 from gaussianhaircut_torch.train import stage1
 from gaussianhaircut_torch.utils.image import read_png
+from tests.exact_skip import jax_3sigma_binning
 
 ITERS = 3
 ARGS = ["--sh_degree", "1", "--lambda_dorient", "0.1", "--gaussian_capacity", "256",
@@ -131,13 +132,16 @@ def test_evaluate_matches_jax(runs):
 
 
 def test_render_cli_matches_jax(runs):
-    """Both render_gaussians CLIs on the JAX-trained model: every exported
-    PNG within one level (1/255), orient_confs within rtol 1e-4 (atol 1e-6),
-    and the exported camera matrices and parameters alike."""
+    """Both render_gaussians CLIs on the JAX-trained model (the JAX one with
+    its 3-sigma binning, whose pairs the port's exact skip composites):
+    every exported PNG within one level (1/255), orient_confs within rtol
+    1e-4 (atol 1e-6), and the exported camera matrices and parameters
+    alike."""
     j_dir, t_dir = runs["jax"], os.path.join(runs["root"], "port_render")
     shutil.copytree(j_dir, t_dir)
     common = ["-s", runs["scene"], "--sh_degree", "1"]
-    j_render.main(common + ["-m", j_dir, "--raster_backend", "jnp"])
+    with jax_3sigma_binning():
+        j_render.main(common + ["-m", j_dir, "--raster_backend", "jnp"])
     t_render.main(common + ["-m", t_dir, "--device", "cpu"])
     out = f"train/ours_{ITERS}"
     kinds = sorted(os.listdir(os.path.join(j_dir, out)))

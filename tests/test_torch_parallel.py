@@ -49,6 +49,7 @@ from gaussianhaircut_torch.scene.cameras import CameraStatic, camera_geom
 from gaussianhaircut_torch.tools import mesh_check
 from gaussianhaircut_torch.train import stage1
 
+from tests.exact_skip import jax_3sigma_binning
 from tests.test_stage1 import make_toy_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -188,8 +189,10 @@ def runs(tmp_path_factory, request):
                        mesh_spec="2x2", progress_callback=lambda it, st, m: jhist.append(
                            (it, float(m["total"]), np.asarray(st.cam_opt.count).copy())))
 
-    # the JAX compiles overlap in threads (XLA compiles outside the GIL)
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    # the JAX compiles overlap in threads (XLA compiles outside the GIL); the
+    # JAX side bins the 3-sigma rect, whose pairs the port's exact skip
+    # composites (tests/exact_skip.py)
+    with jax_3sigma_binning(), concurrent.futures.ThreadPoolExecutor(4) as pool:
         meshes = {(spec, tuple(cams)) for _, spec, cams in STEPS.values()}
         futures = {m: pool.submit(jax_step, m[0], list(m[1])) for m in sorted(meshes)}
         loop = pool.submit(jax_loop)

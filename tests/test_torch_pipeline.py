@@ -35,6 +35,7 @@ from gaussianhaircut_torch.preprocessing import frames
 from gaussianhaircut_torch.scene.synthetic import toy_pipeline_scene
 from gaussianhaircut_torch.train import stage2
 from gaussianhaircut_torch.utils.image import read_png
+from tests.exact_skip import jax_3sigma_binning
 
 ITERS = (3, 2, 2)
 SMALL_UNET = dict(channels=(32, 64), depths=(1, 1))
@@ -97,16 +98,19 @@ def test_run_pipeline_reaches_export(pipeline):
 
 
 def test_render_strands_matches_jax(pipeline, tmp_path):
-    """The JAX render_strands of the port's stage-3 checkpoint and scene:
-    every PNG within 1 level of the port's render, orient_confs within
-    atol 1e-4; then the JAX metrics CLI scores the port's renders."""
+    """The JAX render_strands of the port's stage-3 checkpoint and scene
+    (with its 3-sigma binning, whose pairs the port's exact skip
+    composites): every PNG within 1 level of the port's render,
+    orient_confs within atol 1e-4; then the JAX metrics CLI scores the
+    port's renders."""
     d = pipeline
     i1, i3 = ITERS[0], ITERS[2]
     jax_hair = str(tmp_path / "hair_jax")
-    j_render_strands.main([
-        "-s", d, "-m", f"{d}/3d_gaussian_splatting/stage1", "--model_hair_path", jax_hair,
-        "--checkpoint_curves", f"{d}/curves_reconstruction/stage3/checkpoints/{i3}.npz",
-        "--skip_test", "--raster_backend", "jnp", "--tile", "16"])
+    with jax_3sigma_binning():
+        j_render_strands.main([
+            "-s", d, "-m", f"{d}/3d_gaussian_splatting/stage1", "--model_hair_path", jax_hair,
+            "--checkpoint_curves", f"{d}/curves_reconstruction/stage3/checkpoints/{i3}.npz",
+            "--skip_test", "--raster_backend", "jnp", "--tile", "16"])
     ours = f"{d}/strands_reconstruction/stage2/train/ours_{i1}"
     ref = f"{jax_hair}/train/ours_{i1}"
     assert sorted(os.listdir(ours)) == sorted(os.listdir(ref))

@@ -1,7 +1,10 @@
 """Parity of the port's rasterizer with the JAX package on the
 tests/test_rasterize.py scene (64 Gaussians, 40x24, tile 8, chunk 16):
 binning, both kernels' plain versions against the interpret-mode Pallas
-kernels, and ``rasterize()`` forward and gradients."""
+kernels, and ``rasterize()`` forward and gradients.  The port's
+exact-skip binning composites the pairs of the 3-sigma rect, which the JAX
+package's drops some of (``tests/exact_skip.py``), so its binning and its
+render are held to the JAX package's 3-sigma binning."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +20,7 @@ from gaussianhaircut_tpu.ops.rasterize.api import (
 from gaussianhaircut_torch.ops.rasterize import common as TC
 from gaussianhaircut_torch.ops.rasterize import plain_core
 from gaussianhaircut_torch.ops.rasterize.api import rasterize as t_rasterize
+from tests.exact_skip import candidate, jax_3sigma_binning
 
 W, H = 40, 24
 NCH = 10
@@ -69,16 +73,20 @@ def tcfg():
     return TC.RasterConfig(tile_w=8, tile_h=8, chunk=16)
 
 
-@pytest.fixture(scope="module")
-def jax_binned(scene, jcfg):
+def _jax_bin(scene, jcfg, exact_skip=True):
     ndc, conic, colors, opacity, depth, valid, _ = scene
     mean_pix = j_ndc_xy_to_pixel(jnp.asarray(ndc), W, H)
     pre = JC.preprocess(mean_pix, jnp.asarray(conic), jnp.asarray(depth),
                         jnp.asarray(valid), W, H, jcfg,
-                        opacity=jnp.asarray(opacity))
+                        opacity=jnp.asarray(opacity) if exact_skip else None)
     return JC.bin_instances(pre, mean_pix, jnp.asarray(conic),
                             jnp.asarray(opacity), jnp.asarray(colors),
                             jnp.asarray(depth), W, H, jcfg)
+
+
+@pytest.fixture(scope="module")
+def jax_binned(scene, jcfg):
+    return _jax_bin(scene, jcfg)
 
 
 @pytest.fixture(scope="module")
@@ -120,31 +128,62 @@ def _per_tile(payload, gid, tof, kit, num_tiles, p):
     return out
 
 
-def test_binning_matches_jax_exact_sort(scene, tcfg, jax_binned):
+def _port_bin(scene, tcfg, exact_skip):
     ndc, conic, colors, opacity, depth, valid, _ = scene
-    p = ndc.shape[0]
     t = {k: torch.from_numpy(v) for k, v in zip(
         ("ndc", "conic", "colors", "opacity", "depth", "valid"),
         (ndc, conic, colors, opacity, depth, valid))}
     mean_pix = ((t["ndc"][:, :2] + 1.0) * torch.tensor([W, H], dtype=torch.float32) - 1.0) * 0.5
     pre = TC.preprocess(mean_pix, t["conic"], t["depth"], t["valid"], W, H, tcfg,
-                        opacity=t["opacity"])
-    tb = TC.bin_instances(pre, mean_pix, t["conic"], t["opacity"], t["colors"],
-                          t["depth"], W, H, tcfg)
-    jb = jax_binned
-    assert tb.num_rendered == int(jb.num_rendered)
-    ours = _per_tile(tb.payload.numpy(), tb.gid.numpy(), tb.tile_of_chunk.numpy(),
-                     tb.chunk_in_tile.numpy(), tb.num_tiles, p)
-    ref = _per_tile(np.asarray(jb.payload), np.asarray(jb.gid),
-                    np.asarray(jb.tile_of_chunk), np.asarray(jb.chunk_in_tile),
-                    jb.num_tiles, p)
+                        opacity=t["opacity"] if exact_skip else None)
+    return mean_pix, TC.bin_instances(pre, mean_pix, t["conic"], t["opacity"], t["colors"],
+                                      t["depth"], W, H, tcfg)
+
+
+def _lists(b, p):
+    return _per_tile(np.asarray(b.payload), np.asarray(b.gid), np.asarray(b.tile_of_chunk),
+                     np.asarray(b.chunk_in_tile), b.num_tiles, p)
+
+
+def test_binning_matches_jax_exact_sort(scene, tcfg, jcfg, jax_binned):
+    """The 3-sigma binning (no ``opacity`` on either side) equals the JAX
+    package's tile by tile: the same instances in the same depth order with
+    the same payload columns.  The exact-skip binning's tile lists are the
+    3-sigma lists with the instances left out that pass the kernels' alpha
+    test at no pixel of their tile, in the same order; they hold every
+    instance of the JAX package's exact-skip lists that passes it (where a
+    scene reaches the defect, the JAX package's lists lack some such
+    instances, and the port's hold them)."""
+    p = scene[0].shape[0]
+    _, tb3 = _port_bin(scene, tcfg, exact_skip=False)
+    jb3 = _jax_bin(scene, jcfg, exact_skip=False)
+    assert tb3.num_rendered == int(jb3.num_rendered)
+    ours3, ref3 = _lists(tb3, p), _lists(jb3, p)
+    for tile in range(tb3.num_tiles):
+        np.testing.assert_array_equal(ours3[tile][0], ref3[tile][0], err_msg=f"tile {tile}")
+        np.testing.assert_allclose(ours3[tile][1], ref3[tile][1], rtol=1e-6, atol=1e-6)
+    for tb in (tb3, _port_bin(scene, tcfg, exact_skip=True)[1]):
+        # the per-tile ranges agree with the (tile_of_chunk, chunk_in_tile) view
+        cs, nc = _tile_chunk_ranges(tb.tile_of_chunk, tb.chunk_in_tile, tb.num_tiles)
+        np.testing.assert_array_equal(cs.numpy(), tb.chunk_start.numpy())
+        np.testing.assert_array_equal(nc.numpy(), tb.nchunks.numpy())
+
+    mean_pix, tb = _port_bin(scene, tcfg, exact_skip=True)
+    assert tb.num_rendered_3sigma == tb3.num_rendered > tb.num_rendered
+    ours, jax_skip = _lists(tb, p), _lists(jax_binned, p)
+    px, py = TC.pixel_coords(tb.num_tiles, W, tcfg, "cpu")
+    conic, opacity = torch.from_numpy(scene[1]), torch.from_numpy(scene[3][:, 0])
+
+    def blends(g, tile):
+        return bool(candidate(mean_pix[g], conic[g], opacity[g], px[tile], py[tile]).any())
+
     for tile in range(tb.num_tiles):
-        np.testing.assert_array_equal(ours[tile][0], ref[tile][0], err_msg=f"tile {tile}")
-        np.testing.assert_allclose(ours[tile][1], ref[tile][1], rtol=1e-6, atol=1e-6)
-    # the per-tile ranges agree with the (tile_of_chunk, chunk_in_tile) view
-    cs, nc = _tile_chunk_ranges(tb.tile_of_chunk, tb.chunk_in_tile, tb.num_tiles)
-    np.testing.assert_array_equal(cs.numpy(), tb.chunk_start.numpy())
-    np.testing.assert_array_equal(nc.numpy(), tb.nchunks.numpy())
+        kept = [g for g in ours3[tile][0] if blends(g, tile)]
+        assert [g for g in ours[tile][0] if blends(g, tile)] == kept, tile
+        order = iter(ours3[tile][0].tolist())
+        assert all(g in order for g in ours[tile][0]), f"tile {tile}: not a subsequence"
+        want = [g for g in jax_skip[tile][0] if blends(g, tile)]
+        assert set(want) <= set(ours[tile][0]), tile
 
 
 def test_plain_fwd_matches_pallas(jax_binned, pallas_fwd, tcfg):
@@ -190,6 +229,9 @@ def _torch_loss_grads(scene, tcfg):
 
 
 def test_rasterize_matches_jax_pallas(scene, jcfg, tcfg):
+    """``rasterize`` (the exact-skip binning) against the JAX package's
+    Pallas path over its 3-sigma binning: forward, radii, the 3-sigma
+    instance count and the gradients."""
     ndc, conic, colors, opacity, depth, valid, bg = scene
     cfg = JC.RasterConfig(**{**jcfg.__dict__, "backend": "pallas"})
 
@@ -199,8 +241,9 @@ def test_rasterize_matches_jax_pallas(scene, jcfg, tcfg):
         return (jnp.sum((out["render"] - jnp.asarray(_target())) ** 2)
                 + jnp.sum(out["final_T"]), out)
 
-    (_, jout), jgrads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
-        *(jnp.asarray(x) for x in (ndc, conic, colors, opacity, bg)))
+    with jax_3sigma_binning():
+        (_, jout), jgrads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+            *(jnp.asarray(x) for x in (ndc, conic, colors, opacity, bg)))
     out, grads = _torch_loss_grads(scene, tcfg)
     np.testing.assert_allclose(out["render"].detach().numpy(), np.asarray(jout["render"]),
                                **FWD_TOL)
@@ -209,7 +252,7 @@ def test_rasterize_matches_jax_pallas(scene, jcfg, tcfg):
     np.testing.assert_array_equal(out["radii"].numpy(), np.asarray(jout["radii"]))
     np.testing.assert_array_equal(out["visibility"].numpy(),
                                   np.asarray(jout["visibility"]))
-    assert out["num_rendered"] == int(jout["num_rendered"])
+    assert out["num_rendered_3sigma"] == int(jout["num_rendered"]) > out["num_rendered"]
     for a, b, name in zip(grads, jgrads, ["ndc", "conic", "colors", "opacity", "bg"]):
         np.testing.assert_allclose(a, np.asarray(b), **BWD_TOL, err_msg=name)
 

@@ -29,6 +29,7 @@ from gaussianhaircut_torch.config import (
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.scene.cameras import CameraBatch, CameraStatic
 from gaussianhaircut_torch.train import densify, stage1
+from tests.exact_skip import jax_3sigma_binning
 
 W, H, N_PTS, N_VIEWS, CAP = 64, 48, 200, 2, 256
 OPT = dict(lambda_dorient=0.1)
@@ -123,8 +124,17 @@ def _assert_state_close(ts, js, tol, what):
 @pytest.fixture(scope="module")
 def steps(toy):
     """Two train steps on each side from the same state (the second one
-    from the JAX state after the first, carried across again)."""
+    from the JAX state after the first, carried across again); the JAX
+    step bins the 3-sigma rect, whose pairs the port's exact skip
+    composites.  The scales get a per-axis lognormal spread of 0.25 (the
+    benchmark's population's): ``create_from_pcd``'s are isotropic, which
+    makes every rotation gradient an analytic zero, and Adam would turn the
+    float32 rounding left in its place into full-size steps, which the two
+    packages round apart."""
     jms = j_gm.create_from_pcd(toy.pts, toy.cols, CAP, 3, toy.extent)
+    spread = np.random.default_rng(8).normal(scale=0.25, size=jms.params.scaling.shape)
+    jms = jms.replace(params=jms.params._replace(
+        scaling=jms.params.scaling + jnp.asarray(spread, jnp.float32)))
     js0 = j_stage1.init_train_state(jms, N_VIEWS, use_barf=True)
     jcb = JCameraBatch.from_cameras(toy.jcams)
     jgt = j_stage1.GtBatch.from_cameras(toy.jcams)
@@ -136,9 +146,10 @@ def steps(toy):
     js = js0
     for cam_idx in (1, 0):
         ts = _carry(js, jms)
-        js_next, jm = j_stage1.train_step(js, jcb, jgt, jnp.asarray(cam_idx),
-                                          raster_cfg=_jax_raster_cfg(),
-                                          opt_cfg=JOptConfig(**OPT), **kw)
+        with jax_3sigma_binning():
+            js_next, jm = j_stage1.train_step(js, jcb, jgt, jnp.asarray(cam_idx),
+                                              raster_cfg=_jax_raster_cfg(),
+                                              opt_cfg=JOptConfig(**OPT), **kw)
         ts_next, tm = stage1.train_step(ts, tcb, tgt, cam_idx,
                                         raster_cfg=RasterConfig(tile_w=32, tile_h=32),
                                         opt_cfg=OptimizationConfig(**OPT), **kw)
@@ -153,7 +164,7 @@ def test_train_step_matches_jax(steps, k):
     for name in ("l1", "ssim", "mask", "orient", "total"):
         np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=1e-4,
                                    err_msg=name)
-    assert tm["num_rendered"] == int(jm["num_rendered"])
+    assert tm["num_rendered_3sigma"] == int(jm["num_rendered"]) >= tm["num_rendered"] > 0
     assert bool(tm["grads_ok"]) and bool(jm["grads_ok"])
     _assert_state_close(ts, js, STEP_TOL, f"step {k}")
     for field in ("max_radii2d", "xyz_grad_accum", "denom"):

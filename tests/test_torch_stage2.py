@@ -170,7 +170,7 @@ def test_stage2_step_matches_jax(tmp_path, small_jax_unet, case):
         raster_cfg=RasterConfig(16, 16, 32), opt_cfg=topt, white_background=False,
         total_iters=50, draws=jax_draws(jstate, jscfg))
 
-    assert t_metrics["num_rendered"] > 0
+    assert t_metrics["num_rendered_3sigma"] >= t_metrics["num_rendered"] > 0
     assert t_metrics["opt_tail_leaves"] == 0      # the CPU runs the per-leaf composition
     for k in ("l1", "mask", "orient", "sds", "total", "grad_norm"):
         np.testing.assert_allclose(float(t_metrics[k]), float(j_metrics[k]), err_msg=k,
