@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases env,build,kernel_fwd,kernel_probe,kernel_bwd,train,viewer,
                                     cli,mesh,batched,video,strands,kernel_strands,pipeline,masks,
-                                    tools,quality,optim_tail]
+                                    tools,quality,optim_tail,precompute]
 
 Drives the port's main paths, the stage-1 trainer and its CLIs, the
 multi-device step on one card, the batched-camera step, the live viewer, the video, the strand
@@ -189,7 +189,27 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    bound.  The kernels line gives the tail's launches counted
                    in the strands phase's stage-2 run (``launches_strands``,
                    one of each kernel per step) and the timing loop's own
-                   count apart (``launches_per_timed_call``).
+                   count apart (``launches_per_timed_call``);
+19. precompute  -- the fused precompute (``ops/precompute.py``,
+                   ``csrc/precompute.cu``) against the composition it
+                   replaces (``render/renderer.py: precompute_plain``, on the
+                   card, in float32 and in float64) at the two cells'
+                   layouts: stage 1's (1M Gaussians, SH 3, the camera
+                   through BARF residuals that take gradients) and the
+                   strands' (a 100k head and 10,000 x 99 strand segments
+                   carrying use_direction, a frozen camera): the forward
+                   outputs, every field's gradient, the camera's and its
+                   residuals', each no further from the float64 composition
+                   than PRE_ERR_FACTOR times the float32 composition is (plus
+                   PRE_ERR_FLOOR of its norm), the rows near a branch
+                   counted apart, and ndc, conic and depth equal to the
+                   float32 composition's bit for bit; two backward runs bit
+                   for bit; one launch of each kernel per call; then the
+                   CUDA-event median of REPS calls
+                   of the forward and backward kernels, beside the bytes
+                   bound and the composition's forward + backward.  The
+                   train phase requires one forward and one backward launch
+                   per step.
 
 Each phase prints one JSON line; then one line lists every kernel, then the
 card's name and power limit, and the last line is the device record.  Any
@@ -212,7 +232,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernel_fwd", "kernel_probe", "kernel_bwd", "train", "viewer", "cli",
           "mesh", "batched", "video", "strands", "kernel_strands", "pipeline", "masks", "tools",
-          "quality", "optim_tail")
+          "quality", "optim_tail", "precompute")
 
 # bench configuration (bench.py:36-99)
 P, WIDTH, HEIGHT, N_VIEWS, SEED = 100_000, 960, 544, 4, 0
@@ -243,6 +263,25 @@ DISTILL_STEPS = 100
 OPTIM_TAIL_RTOL = 1e-6
 OPTIM_TAIL_NAN_LEAF = 100
 OPTIM_TAIL_GRAD_SCALES = {"clip_loose": 1e-5, "clip_binding": 1e-3, "nan_leaf": 1e-5}
+# the precompute phase: the two cells' layouts (Gaussians, head rows, SH
+# rows stored), and the kernels' results against the composition's in
+# float64: a tensor's error norm (over the rows no branch decides) at most
+# PRE_ERR_FACTOR times the float32 composition's, plus PRE_ERR_FLOOR of the
+# float64 tensor's norm.  Both float32 results round the same operations,
+# summed in another order (the composition's 3x3 products are cuBLAS
+# GEMMs), so neither is nearer the float64 one by more than a small
+# factor.  A row counts as near a branch, and is held apart (left out of the
+# forward's comparison, its cotangent set to 0), where the float64 view-space
+# x / z or y / z lies within PRE_NEAR (relative) of the 1.3 tan_fov clamp or
+# a colour's value before the clamp at 0 within PRE_NEAR of 0: there the two
+# float32 results may take different sides.  The principal axis is no such
+# branch here: the scales are float32 in both and the modifier is 1, so
+# every comparison of them, ties at the 0.01 cap included, is the same
+# comparison
+PRE_S1, PRE_HEAD, PRE_HAIR, PRE_SH_DEGREE = 1_000_000, 100_000, N_STRANDS * (STRAND_LEN - 1), 3
+PRE_ERR_FACTOR, PRE_ERR_FLOOR, PRE_NEAR = 2.0, 1e-7, 1e-5
+# the forward outputs that must equal the float32 composition's bit for bit
+PRE_BITWISE = ("ndc", "conic", "depth")
 # the tools phase: pipeline_e2e_run.build_scene at its defaults, the
 # converters' distillation steps, the lr probe's iterations and lrs, and the
 # LPIPS distance on the card against the CPU's (float32 convolutions both)
@@ -486,6 +525,11 @@ def main() -> int:
                        "replaces": None, "added_for": "stage 2's per-leaf optimizer tail "
                        "(train/stage2.py: train_step), ~30 launches per leaf",
                        "library_ms": None},
+        "precompute": {"name": "precompute", "route": "cuda",
+                       "source": "gaussianhaircut_torch/csrc/precompute.cu",
+                       "replaces": None, "added_for": "the precompute's chain of small "
+                       "PyTorch ops (render/renderer.py: precompute_plain), cuBLAS batched "
+                       "3x3 GEMMs, ~750 launches per camera", "library_ms": None},
     }
 
     if "env" in phases:
@@ -671,6 +715,12 @@ def main() -> int:
     if "optim_tail" in phases:
         emit(optim_tail_phase(torch, dev, kernels))
 
+    if "precompute" in phases:
+        t0 = time.perf_counter()
+        res = precompute_phase(torch, scene, dev, kernels)
+        res["seconds"] = time.perf_counter() - t0
+        emit(res)
+
     complete = all(ph in phases for ph in PHASES)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if complete:
@@ -815,6 +865,214 @@ def optim_tail_phase(torch, dev, kernels):
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
 
 
+def precompute_layout(torch, n, n_head, dev, seed):
+    """Activated fields of ``n`` Gaussians on the card (float32): a blob at
+    the bench scene's spread; with ``n_head`` < ``n`` the rows from
+    ``n_head`` on are strand segments (one long axis, ~2 mm across, 2-D
+    direction on) and the rows before them the head's (direction off)."""
+    from gaussianhaircut_torch.ops.quaternion import build_rotation
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    rows = (PRE_SH_DEGREE + 1) ** 2
+    scaling = torch.exp(rnd(n, 3) * 0.5 - 5.0).clamp(max=0.01)
+    f = {"xyz": 0.3 * rnd(n, 3), "features": 0.3 * rnd(n, rows, 3), "scaling": scaling,
+         "rotation_matrix": build_rotation(rnd(n, 4)),
+         "label": torch.rand(n, 1, generator=gen, device=dev),
+         "orient_conf": torch.rand(n, 1, generator=gen, device=dev) + 0.5,
+         "viewspace": torch.zeros(n, 3, device=dev), "use_direction": None}
+    if n_head < n:
+        f["scaling"][n_head:] = torch.tensor([0.004, 0.001, 0.001], device=dev)
+        f["use_direction"] = (torch.arange(n, device=dev) >= n_head).float()
+    return f
+
+
+def near_branch(torch, f64, cam64, deg):
+    """[P] bool: the rows near a branch of the precompute (see PRE_NEAR),
+    from the float64 fields and camera."""
+    from gaussianhaircut_torch.ops import sh as sh_ops
+    from gaussianhaircut_torch.ops.quaternion import normalize
+    t = f64["xyz"] @ cam64.viewmatrix[:3, :3] + cam64.viewmatrix[3, :3]
+    near = torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
+    for k, tan in ((0, cam64.tan_fovx), (1, cam64.tan_fovy)):
+        lim = 1.3 * tan
+        near |= ((t[:, k] / t[:, 2]).abs() - lim).abs() <= PRE_NEAR * lim
+    raw = sh_ops.eval_sh(deg, f64["features"], normalize(f64["xyz"] - cam64.campos)) + 0.5
+    near |= (raw.abs() <= PRE_NEAR).any(-1)
+    return near
+
+
+def precompute_phase(torch, scene, dev, kernels):
+    """The fused precompute against the composition at the two cells'
+    layouts, then its kernels timed (see the module docstring, item 19)."""
+    import dataclasses
+    from gaussianhaircut_torch.ops import precompute as pre_ops
+    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch.render import renderer
+    from gaussianhaircut_torch.scene.cameras import CameraBatch, CameraResiduals, camera_geom
+    from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, scene_camera
+
+    fields_names = ("xyz", "features", "scaling", "rotation_matrix", "label", "orient_conf",
+                    "viewspace")
+    cam_names = ("viewmatrix", "projmatrix", "campos", "tan_fovx", "tan_fovy")
+    deg = PRE_SH_DEGREE
+    cam0 = scene_camera(scene, 0, dev)
+    cb = CameraBatch.from_cameras(scene.train_cameras, dev)
+    out = {"phase": "precompute"}
+    for name, n, n_head, cam_grad in (("s1", PRE_S1, PRE_S1, True),
+                                      ("strands", PRE_HEAD + PRE_HAIR, PRE_HEAD, False)):
+        f = precompute_layout(torch, n, n_head, dev, SEED + 7)
+        cam = {k: getattr(cam0, k).detach().clone() for k in cam_names}
+        f64 = {k: None if v is None else v.double() for k, v in f.items()}
+        cam64 = dataclasses.replace(cam0, **{k: v.double() for k, v in cam.items()})
+        near = near_branch(torch, f64, cam64, deg)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        keep = (~near).float()
+        cot = [torch.randn(shape, generator=gen, device=dev) * keep.view(-1, *[1] * (len(shape) - 1))
+               for shape in ((n, 3), (n, 3), (n, 10), (n,))]
+        cot[0] = cot[0] * 0.01        # NDC cotangents of pixel-sized steps' scale
+
+        def inputs(dtype):
+            leaves = {k: f[k].to(dtype).clone().requires_grad_(True) for k in fields_names}
+            ud = None if f["use_direction"] is None else f["use_direction"].to(dtype)
+            fl = renderer.GaussianFields(opacity=torch.ones_like(leaves["label"]),
+                                         valid=torch.ones(n, dtype=torch.bool, device=dev),
+                                         use_direction=ud, **leaves)
+            if cam_grad:   # the camera through BARF residuals, as stage 1 trains it
+                res = CameraResiduals(*(torch.zeros(k, dtype=dtype, device=dev,
+                                                    requires_grad=True) for k in (3, 3, 2)))
+                geom = camera_geom(cb.colmap_transform[0].to(dtype), cb.fovx[0].to(dtype),
+                                   cb.fovy[0].to(dtype), cam0.width, cam0.height, res, None,
+                                   use_barf=True)
+                cam_t = [getattr(geom, k) for k in cam_names] + [res.rotation,
+                                                                 res.translation, res.fov]
+            else:
+                geom = dataclasses.replace(cam0, **{k: cam[k].to(dtype) for k in cam_names})
+                cam_t = []
+            return fl, geom, list(leaves.values()) + cam_t, [c.to(dtype) for c in cot]
+
+        def run(route, dtype, args=None):
+            fl, geom, wrt, cots = args or inputs(dtype)
+            if route == "kernel":
+                pre = renderer.precompute(fl, deg, geom)
+                require(pre.fused_gaussians == n, f"precompute {name}: the kernel covered "
+                        f"{pre.fused_gaussians} of {n} Gaussians")
+                outs = tuple(pre[:4])
+            else:
+                outs = renderer.precompute_plain(fl, deg, geom)
+            grads = torch.autograd.grad(outs, wrt, cots, retain_graph=True, allow_unused=True)
+            return outs, grads, (outs, wrt, cots)
+
+        cuda_core.reset_launch_counts()
+        k_out, k_grads, k_graph = run("kernel", torch.float32)
+        k_grads2 = torch.autograd.grad(*k_graph, allow_unused=True)
+        torch.cuda.synchronize()
+        launched = {k: cuda_core.launches[f"precompute_{k}"] for k in ("fwd", "bwd", "cam_reduce")}
+        require(launched == {"fwd": 1, "bwd": 2, "cam_reduce": 2 if cam_grad else 0},
+                f"precompute {name}: launches {launched} for one forward and two backwards")
+        require(all(torch.equal(a, b) for a, b in zip(k_grads, k_grads2)),
+                f"precompute {name}: two backward runs differ")
+        p_out, p_grads, _ = run("plain", torch.float32)
+        r_out, r_grads, _ = run("plain", torch.float64)
+        del k_graph
+        # what the binning and the compositing kernels decide on is the
+        # composition's bit for bit (csrc/precompute.cu rounds as cuBLAS
+        # and PyTorch's elementwise ops do); the colours are compared below
+        mismatched = {tname: int((a.detach() != b.detach()).sum()) for tname, a, b in
+                      zip(("ndc", "conic", "colors", "depth"), k_out, p_out)}
+        require(not any(mismatched[k] for k in PRE_BITWISE),
+                f"precompute {name}: the forward's {PRE_BITWISE} differ from the "
+                f"composition's in {mismatched} elements")
+        names = ["ndc", "conic", "colors", "depth"] + list(fields_names) + (
+            [f"cam.{k}" for k in cam_names] + ["residual.rotation", "residual.translation",
+                                               "residual.fov"] if cam_grad else [])
+        rows = {}
+        for i, tname in enumerate(names):
+            is_out = i < 4
+            got = (k_out if is_out else k_grads)[i if is_out else i - 4]
+            plain = (p_out if is_out else p_grads)[i if is_out else i - 4]
+            ref = (r_out if is_out else r_grads)[i if is_out else i - 4]
+            got, plain, ref = (t.detach() for t in (got, plain, ref))
+            if is_out:     # the forward's rows near a branch are held apart
+                got, plain, ref = got[~near], plain[~near], ref[~near]
+            ref_norm = float(ref.norm())
+            err_k = float((got.double() - ref).norm())
+            err_p = float((plain.double() - ref).norm())
+            limit = PRE_ERR_FACTOR * err_p + PRE_ERR_FLOOR * ref_norm
+            rows[tname] = {"err_kernel": err_k, "err_composition": err_p, "norm": ref_norm,
+                           "limit": limit, "max_abs_kernel_vs_composition":
+                           float((got - plain).abs().max()), "bit_identical": torch.equal(got, plain)}
+            require(ref_norm > 0 or tname in ("viewspace",), f"precompute {name}: {tname} is 0 "
+                    "in float64, so the check cannot fail")
+            require(bool(torch.isfinite(got).all()), f"precompute {name}: {tname} not finite")
+            require(err_k <= limit, f"precompute {name}: {tname} is {err_k} from the float64 "
+                    f"composition, the float32 composition {err_p} (limit {limit})")
+        del p_out, p_grads, r_out, r_grads, k_grads2
+        out[name] = {"gaussians": n, "head_rows": n_head, "sh_degree": deg,
+                     "camera_gradient": cam_grad, "near_branch_rows": int(near.sum()),
+                     "forward_mismatched_elements": mismatched,
+                     "launches": launched, "tensors": rows,
+                     "max_abs_err": max(r["max_abs_kernel_vs_composition"] for r in rows.values())}
+
+        # timing: the kernels alone (launched directly, ten per timed call),
+        # then forward + backward through the wrapper and through the
+        # composition, each a CUDA-event median of REPS calls
+        xs = [f[k].contiguous() for k in fields_names]
+        ud = f["use_direction"]
+        packed = torch.cat([cam["viewmatrix"].reshape(16), cam["projmatrix"].reshape(16),
+                            cam["campos"].reshape(3), cam["tan_fovx"].reshape(1),
+                            cam["tan_fovy"].reshape(1)])
+        rows_sh = f["features"].shape[1]
+        o = [torch.empty(n, 3, device=dev), torch.empty(n, 3, device=dev),
+             torch.empty(n, 10, device=dev), torch.empty(n, device=dev)]
+        g = [torch.empty_like(xs[i]) for i in range(4)] + [torch.empty(n, 1, device=dev)
+                                                             for _ in range(2)]
+        blocks = -(-n // pre_ops.THREADS)
+        part = torch.empty(blocks, pre_ops.CAM_VALUES, dtype=torch.float64, device=dev)
+        flat = torch.empty(pre_ops.CAM_FLOATS, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr = lambda t: None if t is None else t.data_ptr()
+        W, H = cam0.width, cam0.height
+
+        def fwd():
+            for _ in range(10):
+                cuda_core.launch("precompute_fwd", *map(ptr, xs), ptr(ud), packed.data_ptr(),
+                                 *map(ptr, o), n, rows_sh, deg, W, H, 1.0, stream)
+
+        def bwd():
+            for _ in range(10):
+                cuda_core.launch("precompute_bwd", *map(ptr, xs[:4]), ptr(ud), packed.data_ptr(),
+                                 *map(ptr, cot), *map(ptr, g), ptr(part) if cam_grad else None,
+                                 n, rows_sh, deg, W, H, 1.0, stream)
+                if cam_grad:
+                    cuda_core.launch("precompute_cam_reduce", part.data_ptr(), blocks,
+                                     flat.data_ptr(), stream)
+
+        args = inputs(torch.float32)
+        fwd_ms, bwd_ms = cuda_ms(fwd, REPS) / 10, cuda_ms(bwd, REPS) / 10
+        wrapper_ms = cuda_ms(lambda: run("kernel", torch.float32, args), REPS)
+        plain_ms = cuda_ms(lambda: run("plain", torch.float32, args), REPS)
+        ud_b = 0 if ud is None else 4
+        fwd_bytes = n * (4 * (3 + 3 * rows_sh + 3 + 9 + 1 + 1 + 3) + ud_b + 4 * (3 + 3 + 10 + 1))
+        bwd_bytes = n * (4 * (3 + 3 * rows_sh + 3 + 9) + ud_b + 4 * (3 + 3 + 10 + 1)
+                         + 4 * (3 + 3 * rows_sh + 3 + 9 + 1 + 1))
+        if cam_grad:
+            bwd_bytes += 2 * blocks * pre_ops.CAM_VALUES * 8
+        b_fwd, _ = bound_ms(fwd_bytes, 0)
+        b_bwd, _ = bound_ms(bwd_bytes, 0)
+        out[name]["timing"] = {
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
+            "fwd_bound_ms": b_fwd, "bwd_bound_ms": b_bwd, "fwd_share": b_fwd / fwd_ms,
+            "bwd_share": b_bwd / bwd_ms, "wrapper_fwd_bwd_ms": wrapper_ms,
+            "composition_fwd_bwd_ms": plain_ms}
+        if name == "s1":
+            kernels["precompute"].update(
+                ms=fwd_ms + bwd_ms, plain_ms=plain_ms, bound_ms=b_fwd + b_bwd, bound_by="bytes",
+                max_abs_err=out[name]["max_abs_err"])
+        del f, f64, xs, o, g, cot, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def probe_phase(torch, binned, cfg, nbytes, kernels):
     """The fixed-cost probe against its plain version on the forward's
     layout, then the profiling path (``profile_fixed.measure``) with the
@@ -930,6 +1188,12 @@ def train_phase(torch, scene, cfg, dev, kernels):
         require(launches[name] == iters,
                 f"train: {name} launched {launches[name]} times in {iters} steps")
         kernels[name]["launches"] = launches[name]
+    # the precompute: one forward and one backward per step, and the camera's
+    # gradient summed once per step (its residuals are trainable)
+    pre = {k: launches[f"precompute_{k}"] for k in ("fwd", "bwd", "cam_reduce")}
+    require(all(v == iters for v in pre.values()),
+            f"train: the precompute's kernels launched {pre} times in {iters} steps")
+    kernels["precompute"]["launches"] = pre
     densified = [it for it in range(2 * window, iters + 1, window)]
     require(any(alive[it] != alive[it - 1] for it in densified),
             f"train: num_alive never changed at densify ({alive})")

@@ -6,8 +6,9 @@ fixed-cost probe (``csrc/raster_probe.cu``, the port of
 ``tools/tpu_profile_r4.py: _h_fixed_probe``) and ``warp_masks``, which
 writes out the per-warp cull all three compute while staging
 (``csrc/raster_common.cuh``) so that it can be held against its plain
-mirror.  Stage 2's optimizer tail (``csrc/optim_tail.cu``) is built and
-launched here too; its wrapper is ``train/optim_tail.py``.
+mirror.  Stage 2's optimizer tail (``csrc/optim_tail.cu``) and the
+precompute (``csrc/precompute.cu``) are built and launched here too; their
+wrappers are ``train/optim_tail.py`` and ``ops/precompute.py``.
 
 The compositing kernels need tiles whose width is a multiple of 8 and
 height a multiple of 4 (each warp owns an 8x4 pixel block), at most 1024 pixels, and
@@ -53,7 +54,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 SOURCES = {"raster_fwd": "raster_fwd.cu", "raster_bwd": "raster_bwd.cu",
-           "raster_probe": "raster_probe.cu", "optim_tail": "optim_tail.cu"}
+           "raster_probe": "raster_probe.cu", "optim_tail": "optim_tail.cu",
+           "precompute": "precompute.cu"}
 # C entry points: name -> (library, argument types before the stream); each
 # takes the stream last and returns cudaGetLastError()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -66,6 +68,9 @@ ENTRY_POINTS = {
     "optim_tail_reduce": ("optim_tail", [_P, _I, _P, _P]),
     "optim_tail_finalize": ("optim_tail", [_P, _P, _I, _P, _P] + [_F] * 3),
     "optim_tail_update": ("optim_tail", [_P, _I, _P] + [_F] * 9),
+    "precompute_fwd": ("precompute", [_P] * 13 + [_I] * 5 + [_F]),
+    "precompute_bwd": ("precompute", [_P] * 17 + [_I] * 5 + [_F]),
+    "precompute_cam_reduce": ("precompute", [_P, _I, _P]),
 }
 _HEADERS = ("raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -11,10 +11,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from gaussianhaircut_torch.models import gaussian_model as gm
+from gaussianhaircut_torch.ops import precompute as precompute_ops
 from gaussianhaircut_torch.ops import projection as proj
 from gaussianhaircut_torch.ops import sh as sh_ops
 from gaussianhaircut_torch.ops.quaternion import build_rotation, normalize
@@ -37,11 +39,34 @@ class GaussianFields:
     use_direction: torch.Tensor | None = None
 
 
-def prepare_raster_inputs(fields: GaussianFields, active_sh_degree: int,
-                          cam: proj.CameraGeom, scaling_modifier: float = 1.0):
-    """Differentiable precompute -> (ndc, conic, colors10, opacity, depth,
-    valid); the JAX package's row-major body
-    (``prepare_raster_inputs_rowmajor``)."""
+class Precomputed(NamedTuple):
+    """The precompute's outputs for one camera."""
+    ndc: torch.Tensor          # [P, 3]
+    conic: torch.Tensor        # [P, 3]
+    colors: torch.Tensor       # [P, 10]
+    depth: torch.Tensor        # [P]
+    fused_gaussians: int       # the Gaussians the kernel covered (0 on the plain path)
+
+
+def precompute(fields: GaussianFields, active_sh_degree: int, cam: proj.CameraGeom,
+               scaling_modifier: float = 1.0) -> Precomputed:
+    """Each Gaussian's compositing inputs: CUDA fields launch the fused
+    kernels (``ops/precompute.py``, which raises on what they do not take),
+    CPU fields run ``precompute_plain``."""
+    if fields.xyz.is_cuda:
+        out = precompute_ops.precompute_cuda(
+            fields.xyz, fields.features, fields.scaling, fields.rotation_matrix,
+            fields.label, fields.orient_conf, fields.viewspace, fields.use_direction, cam,
+            active_sh_degree, scaling_modifier)
+        return Precomputed(*out, fields.xyz.shape[0])
+    return Precomputed(*precompute_plain(fields, active_sh_degree, cam, scaling_modifier), 0)
+
+
+def precompute_plain(fields: GaussianFields, active_sh_degree: int,
+                     cam: proj.CameraGeom, scaling_modifier: float = 1.0):
+    """The precompute as a composition of PyTorch ops, differentiable by
+    autograd -> (ndc, conic, colors10, depth); the JAX package's row-major
+    body (``prepare_raster_inputs_rowmajor``)."""
     xyz = fields.xyz
     scaling = fields.scaling * scaling_modifier
     rot_m = fields.rotation_matrix
@@ -62,7 +87,15 @@ def prepare_raster_inputs(fields: GaussianFields, active_sh_degree: int,
         orient_conf = orient_conf * fields.use_direction[:, None]
     colors = torch.cat([rgb, fields.label, torch.ones_like(fields.label), dir2d,
                         orient_conf, depth], dim=-1)
-    return ndc, conic, colors, fields.opacity, depth[:, 0], fields.valid
+    return ndc, conic, colors, depth[:, 0]
+
+
+def prepare_raster_inputs(fields: GaussianFields, active_sh_degree: int,
+                          cam: proj.CameraGeom, scaling_modifier: float = 1.0):
+    """Differentiable precompute -> (ndc, conic, colors10, opacity, depth,
+    valid) (``precompute``; opacity and valid pass through)."""
+    ndc, conic, colors, depth, _ = precompute(fields, active_sh_degree, cam, scaling_modifier)
+    return ndc, conic, colors, fields.opacity, depth, fields.valid
 
 
 def decode_render10(render10: torch.Tensor) -> dict:
@@ -87,11 +120,12 @@ def render_fields(fields: GaussianFields, active_sh_degree: int,
                   cam: proj.CameraGeom, bg: torch.Tensor,
                   cfg: RasterConfig | None = None,
                   scaling_modifier: float = 1.0) -> dict:
-    """Render activated fields through the compositing kernels and decode."""
-    ndc, conic, colors, opacity, depth, valid = prepare_raster_inputs(
-        fields, active_sh_degree, cam, scaling_modifier)
-    out = rasterize(ndc, conic, colors, opacity, depth, valid, bg,
-                    cam.width, cam.height, cfg)
+    """Render activated fields through the compositing kernels and decode;
+    ``precompute_gaussians`` is the Gaussians the precompute's kernel
+    covered (0 on the CPU)."""
+    pre = precompute(fields, active_sh_degree, cam, scaling_modifier)
+    out = rasterize(pre.ndc, pre.conic, pre.colors, fields.opacity, pre.depth, fields.valid,
+                    bg, cam.width, cam.height, cfg)
     decoded = decode_render10(out["render"])
     decoded.update({
         "final_T": out["final_T"],
@@ -99,6 +133,7 @@ def render_fields(fields: GaussianFields, active_sh_degree: int,
         "radii": out["radii"],
         "num_rendered": out["num_rendered"],
         "num_rendered_3sigma": out["num_rendered_3sigma"],
+        "precompute_gaussians": pre.fused_gaussians,
     })
     return decoded
 
@@ -112,13 +147,15 @@ def render_fields_batched(fields: GaussianFields, active_sh_degree: int,
     replaces the viewspace port camera by camera, so that its gradient
     comes back per camera (the densify statistics read each camera's on its
     own).  Returns the decoded dict with a leading [B] axis on every image
-    and per-Gaussian output; ``num_rendered`` is the total over cameras."""
+    and per-Gaussian output; ``num_rendered`` and ``precompute_gaussians``
+    are the totals over cameras."""
     per_cam = []
     for b, cam in enumerate(cams):
         f = (fields if viewspace_batch is None
              else dataclasses.replace(fields, viewspace=viewspace_batch[b]))
-        per_cam.append(prepare_raster_inputs(f, active_sh_degree, cam))
-    ndc, conic, colors, opacity, depth, valid = (torch.stack(x) for x in zip(*per_cam))
+        per_cam.append(precompute(f, active_sh_degree, cam))
+    ndc, conic, colors, depth = (torch.stack(x) for x in zip(*(p[:4] for p in per_cam)))
+    opacity, valid = (torch.stack([x] * len(cams)) for x in (fields.opacity, fields.valid))
     out = rasterize_batched(ndc, conic, colors, opacity, depth, valid, bg,
                             cams[0].width, cams[0].height, cfg)
     per_image = [decode_render10(r) for r in out["render"]]
@@ -129,6 +166,7 @@ def render_fields_batched(fields: GaussianFields, active_sh_degree: int,
         "radii": out["radii"],
         "num_rendered": out["num_rendered"],
         "num_rendered_3sigma": out["num_rendered_3sigma"],
+        "precompute_gaussians": sum(p.fused_gaussians for p in per_cam),
     })
     return decoded
 

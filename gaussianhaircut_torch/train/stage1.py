@@ -184,9 +184,11 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
                trainable_cameras: bool, trainable_intrinsics: bool,
                use_barf: bool, white_background: bool):
     """One stage-1 step on camera ``cam_idx``.  Returns (new_state,
-    metrics); metrics hold device scalars plus ``num_rendered`` and
-    ``num_rendered_3sigma`` (ints: the instances binned, and those that the
-    reference's 3-sigma tile rect would bin)."""
+    metrics); metrics hold device scalars plus ``num_rendered``,
+    ``num_rendered_3sigma`` and ``precompute_gaussians`` (ints: the
+    instances binned, those that the reference's 3-sigma tile rect would
+    bin, and the Gaussians the precompute's kernel covered, 0 on the
+    CPU)."""
     device = state.model.params.xyz.device
     bg = default_background(white_background, device)
     alive = state.model.aux.alive
@@ -213,6 +215,7 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["num_rendered"] = out["num_rendered"]
     metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
+    metrics["precompute_gaussians"] = out["precompute_gaussians"]
     metrics["grads_ok"] = ok
     return new_state, metrics
 
@@ -236,8 +239,8 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     (frozen) viewspace take their camera mean as the mesh step's do, where
     the JAX step gives them zero.  At B = 1 this is ``train_step`` bit for
     bit.  Returns (new_state, metrics): the loss terms averaged over
-    cameras, ``num_rendered`` and ``num_rendered_3sigma`` the totals over
-    them (ints)."""
+    cameras, ``num_rendered``, ``num_rendered_3sigma`` and
+    ``precompute_gaussians`` the totals over them (ints)."""
     cam_idxs = [int(i) for i in cam_idxs]
     n = len(cam_idxs)
     if n < 1 or len(set(cam_idxs)) != n:
@@ -284,6 +287,7 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     metrics = {k: torch.stack([p[k] for p in parts]).detach().mean() for k in parts[0]}
     metrics["num_rendered"] = out["num_rendered"]
     metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
+    metrics["precompute_gaussians"] = out["precompute_gaussians"]
     metrics["grads_ok"] = ok
     return new_state, metrics
 

@@ -264,8 +264,9 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
     and the optimizer state are updated in place (``optim_tail.adamw_tail_``),
     the rest is new; metrics hold device scalars, ``num_rendered``,
     ``num_rendered_3sigma`` (the instances that the reference's 3-sigma tile
-    rect would bin) and ``opt_tail_leaves`` (ints: the leaves the fused
-    optimizer pass covered, 0 on the CPU)."""
+    rect would bin), ``opt_tail_leaves`` and ``precompute_gaussians`` (ints:
+    the leaves the fused optimizer pass covered and the Gaussians the
+    precompute's kernel covered, 0 on the CPU)."""
     device = state.params.texture.device
     bg = default_background(white_background, device)
     if draws is None:
@@ -301,6 +302,7 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
     metrics["num_rendered"] = out["num_rendered"]
     metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
     metrics["opt_tail_leaves"] = tail.fused_leaves
+    metrics["precompute_gaussians"] = out["precompute_gaussians"]
     return dataclasses.replace(state, step=state.step + 1), metrics
 
 

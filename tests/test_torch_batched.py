@@ -302,6 +302,7 @@ def test_train_step_batched_one_camera_is_train_step(runs, cam):
     got, m = stage1.train_step_batched(runs.tstate, cb, gt, [cam], **kw)
     assert stage1.state_digest(got) == stage1.state_digest(ref)
     assert m["num_rendered"] == rm["num_rendered"]
+    assert m["precompute_gaussians"] == rm["precompute_gaussians"] == 0   # the CPU's composition
     assert all(torch.equal(m[k], rm[k]) for k in ("l1", "ssim", "mask", "orient", "total"))
 
 

@@ -172,6 +172,7 @@ def test_stage2_step_matches_jax(tmp_path, small_jax_unet, case):
 
     assert t_metrics["num_rendered_3sigma"] >= t_metrics["num_rendered"] > 0
     assert t_metrics["opt_tail_leaves"] == 0      # the CPU runs the per-leaf composition
+    assert t_metrics["precompute_gaussians"] == 0  # and the precompute's composition
     for k in ("l1", "mask", "orient", "sds", "total", "grad_norm"):
         np.testing.assert_allclose(float(t_metrics[k]), float(j_metrics[k]), err_msg=k,
                                    **STEP_TOL)
