@@ -97,8 +97,8 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    for 40 iterations, ``cli.train_strands`` from its
                    checkpoint with ``--use_sds`` for 40, ``cli.export_curves``;
                    each step launches each compositing kernel once (and in
-                   stage 2 each kernel of the fused optimizer tail once, over
-                   every leaf: ``opt_tail_leaves``), the losses are finite,
+                   stage 2 each kernel of the fused optimizer tail once:
+                   ``kernels.launches``), the losses are finite,
                    the checkpoints load back and the exported [10000, 100, 3]
                    strands are finite; per stage
                    it/s, instances (the hair rows' share), chunks, the
@@ -182,7 +182,8 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    the clip binding, a NaN in one leaf (parameters, moments
                    and count kept, the EMA moved); parameters, moments, EMA
                    and norm within a relative OPTIM_TAIL_RTOL of the leaf's
-                   largest value, the count exact; then the CUDA-event median
+                   largest value, the count exact, each kernel launched once
+                   a call; then the CUDA-event median
                    of REPS calls of the kernels' launches alone (on a table
                    built once), of the whole wrapper and of the plain version,
                    each one's host time and launches per call, and the bytes
@@ -263,6 +264,7 @@ DISTILL_STEPS = 100
 OPTIM_TAIL_RTOL = 1e-6
 OPTIM_TAIL_NAN_LEAF = 100
 OPTIM_TAIL_GRAD_SCALES = {"clip_loose": 1e-5, "clip_binding": 1e-3, "nan_leaf": 1e-5}
+TAIL_ENTRIES = ("optim_tail_reduce", "optim_tail_finalize", "optim_tail_update")
 # the precompute phase: the two cells' layouts (Gaussians, head rows, SH
 # rows stored), and the kernels' results against the composition's in
 # float64: a tensor's error norm (over the rows no branch decides) at most
@@ -493,6 +495,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
+        from gaussianhaircut_torch import kernels as loader
         from gaussianhaircut_torch.ops.rasterize import common as C
         from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
         from gaussianhaircut_torch.ops.rasterize.api import segment_sum
@@ -540,13 +543,13 @@ def main() -> int:
                        torch.backends.cudnn.allow_tf32]})
 
     t0 = time.perf_counter()
-    logs = cuda_core.build(verbose=True)
+    logs = loader.build(verbose=True)
     build_s = time.perf_counter() - t0
     if "build" in phases:
         emit({"phase": "build", "seconds": round(build_s, 3),
               "ptxas": ptxas_summary(logs),
               "blocks_per_sm": {name: cuda_core.blocks_per_sm(name, cfg)
-                                for name in cuda_core.SOURCES if name.startswith("raster")}})
+                                for name in loader.SOURCES if name.startswith("raster")}})
 
     from gaussianhaircut_torch.scene.synthetic import bench_scene
     scene = bench_scene(P, WIDTH, HEIGHT, N_VIEWS, SEED)
@@ -598,7 +601,7 @@ def main() -> int:
               "cull": culled, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by, "bound_ms_uncut": bound_ms(
                   in_bytes + buf_bytes, ops_fwd + uncut * OPS_VISIT)[0],
-              "launches": cuda_core.launches["raster_fwd"]})
+              "launches": loader.launches["raster_fwd"]})
 
     if "kernel_probe" in phases:
         emit(probe_phase(torch, binned, cfg, in_bytes + buf_bytes, kernels))
@@ -744,11 +747,11 @@ def main() -> int:
 def optim_tail_phase(torch, dev, kernels):
     """Stage 2's fused optimizer tail against its plain version on the card,
     then both timed (see the module docstring, item 18)."""
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.models.diffusion import Denoiser, DiffusionConfig
     from gaussianhaircut_torch.models.strand_prior import ColorDecoder, StrandDecoder
     from gaussianhaircut_torch.models.textured_strands import (
         StrandParams, TexturedStrandsConfig)
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.tools.profile_fixed import cuda_ms
     from gaussianhaircut_torch.train import optim, optim_tail
 
@@ -791,17 +794,18 @@ def optim_tail_phase(torch, dev, kernels):
             grads[list(shapes)[OPTIM_TAIL_NAN_LEAF]].view(-1)[7] = float("nan")
         before = {k: t.clone() for k, t in tensors(state).items()}
         count0 = int(state["opt"].count)
+        loader.reset_launch_counts()
         got = optim_tail.adamw_tail_(state["params"], grads, state["opt"], pairs(state), lr, clip)
         want = optim_tail.adamw_tail_plain_(twin["params"], grads, twin["opt"], pairs(twin), lr,
                                             clip)
         torch.cuda.synchronize()
-        require(got.fused_leaves == len(shapes), f"optim_tail: the kernel covered "
-                f"{got.fused_leaves} of {len(shapes)} leaves")
+        require(all(loader.launches[k] == 1 for k in TAIL_ENTRIES),
+                f"optim_tail: one call launched {loader.launches}")
         a, b = tensors(state), tensors(twin)
         rel = {k: float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30))
                for k in b}
         worst = max(rel, key=rel.get)
-        gn, gn_want = float(got.grad_norm), float(want)
+        gn, gn_want = float(got), float(want)
         gn_rel = abs(gn - gn_want) / gn_want if np.isfinite(gn_want) else None
         steps[name] = {"grad_norm": gn, "grad_norm_plain": gn_want, "grad_norm_rel": gn_rel,
                        "max_rel_err": rel[worst], "worst": worst,
@@ -840,13 +844,13 @@ def optim_tail_phase(torch, dev, kernels):
     for path, fn in (("kernel", launched), ("wrapper", kernel), ("plain", plain)):
         ms = cuda_ms(fn, REPS)
         torch.cuda.synchronize()
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         t0 = time.perf_counter()
         for _ in range(REPS):
             fn()
         host_ms = (time.perf_counter() - t0) / REPS * 1e3
         torch.cuda.synchronize()
-        launches = {k: v for k, v in cuda_core.launches.items() if v}
+        launches = {k: v for k, v in loader.launches.items() if v}
         timing[path] = {"ms": ms, "host_ms_per_call": host_ms,
                         "launches_per_call": {k: v / REPS for k, v in launches.items()}}
     n_all = sum(p.numel() for p in params.values())
@@ -905,8 +909,8 @@ def precompute_phase(torch, scene, dev, kernels):
     """The fused precompute against the composition at the two cells'
     layouts, then its kernels timed (see the module docstring, item 19)."""
     import dataclasses
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.ops import precompute as pre_ops
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.render import renderer
     from gaussianhaircut_torch.scene.cameras import CameraBatch, CameraResiduals, camera_geom
     from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, scene_camera
@@ -952,21 +956,16 @@ def precompute_phase(torch, scene, dev, kernels):
 
         def run(route, dtype, args=None):
             fl, geom, wrt, cots = args or inputs(dtype)
-            if route == "kernel":
-                pre = renderer.precompute(fl, deg, geom)
-                require(pre.fused_gaussians == n, f"precompute {name}: the kernel covered "
-                        f"{pre.fused_gaussians} of {n} Gaussians")
-                outs = tuple(pre[:4])
-            else:
-                outs = renderer.precompute_plain(fl, deg, geom)
+            outs = (renderer.precompute if route == "kernel" else renderer.precompute_plain)(
+                fl, deg, geom)
             grads = torch.autograd.grad(outs, wrt, cots, retain_graph=True, allow_unused=True)
             return outs, grads, (outs, wrt, cots)
 
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         k_out, k_grads, k_graph = run("kernel", torch.float32)
         k_grads2 = torch.autograd.grad(*k_graph, allow_unused=True)
         torch.cuda.synchronize()
-        launched = {k: cuda_core.launches[f"precompute_{k}"] for k in ("fwd", "bwd", "cam_reduce")}
+        launched = {k: loader.launches[f"precompute_{k}"] for k in ("fwd", "bwd", "cam_reduce")}
         require(launched == {"fwd": 1, "bwd": 2, "cam_reduce": 2 if cam_grad else 0},
                 f"precompute {name}: launches {launched} for one forward and two backwards")
         require(all(torch.equal(a, b) for a, b in zip(k_grads, k_grads2)),
@@ -1035,16 +1034,16 @@ def precompute_phase(torch, scene, dev, kernels):
 
         def fwd():
             for _ in range(10):
-                cuda_core.launch("precompute_fwd", *map(ptr, xs), ptr(ud), packed.data_ptr(),
+                loader.launch("precompute_fwd", *map(ptr, xs), ptr(ud), packed.data_ptr(),
                                  *map(ptr, o), n, rows_sh, deg, W, H, 1.0, stream)
 
         def bwd():
             for _ in range(10):
-                cuda_core.launch("precompute_bwd", *map(ptr, xs[:4]), ptr(ud), packed.data_ptr(),
+                loader.launch("precompute_bwd", *map(ptr, xs[:4]), ptr(ud), packed.data_ptr(),
                                  *map(ptr, cot), *map(ptr, g), ptr(part) if cam_grad else None,
                                  n, rows_sh, deg, W, H, 1.0, stream)
                 if cam_grad:
-                    cuda_core.launch("precompute_cam_reduce", part.data_ptr(), blocks,
+                    loader.launch("precompute_cam_reduce", part.data_ptr(), blocks,
                                      flat.data_ptr(), stream)
 
         args = inputs(torch.float32)
@@ -1077,6 +1076,7 @@ def probe_phase(torch, binned, cfg, nbytes, kernels):
     """The fixed-cost probe against its plain version on the forward's
     layout, then the profiling path (``profile_fixed.measure``) with the
     launch counts set to 0 just before it."""
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
     from gaussianhaircut_torch.tools.profile_fixed import cuda_ms, measure
     lay = (binned.payload, binned.chunk_start, binned.nchunks)
@@ -1095,10 +1095,10 @@ def probe_phase(torch, binned, cfg, nbytes, kernels):
     require(bool((got[~has] == 0).all()), "probe kernel: non-zero output on an empty tile")
     plain_ms = cuda_ms(lambda: plain_core.raster_probe_plain(*lay, cfg), REPS)
 
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     res = measure(binned, WIDTH, HEIGHT, cfg, reps=REPS)
     torch.cuda.synchronize()
-    launches = cuda_core.launches["raster_probe"]
+    launches = loader.launches["raster_probe"]
     require(launches > 0, "profiling path: the probe kernel was not launched")
     used_chunks = int(binned.nchunks.sum())
     # FP32 operations: the chunk's 255 shuffle adds, then per pixel the
@@ -1111,7 +1111,7 @@ def probe_phase(torch, binned, cfg, nbytes, kernels):
     return {"phase": "kernel_probe", "max_abs_err": float(err.max()),
             "max_tile_abs_sum": float(abs_sum.max()), "tiles_with_chunks": int(has.sum()),
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "launches": dict(cuda_core.launches), **res}
+            "launches": dict(loader.launches), **res}
 
 
 def small_input_check(torch, cfg, dev):
@@ -1151,6 +1151,7 @@ def train_phase(torch, scene, cfg, dev, kernels):
     """train() at the bench configuration with densify and one opacity
     reset; it/s from four 10-step windows; the per-step split from the
     components timed alone at the final state's shapes."""
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.ops.rasterize.api import segment_sum
@@ -1176,11 +1177,11 @@ def train_phase(torch, scene, cfg, dev, kernels):
             marks[it] = time.perf_counter()
 
     small_errs = small_input_check(torch, cfg, dev)
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     state = stage1.train(model_cfg, opt_cfg, pipe_cfg, scene, device=dev,
                          progress_callback=progress)
     torch.cuda.synchronize()
-    launches = dict(cuda_core.launches)
+    launches = dict(loader.launches)
     totals = torch.stack(totals).cpu().numpy()
     require(bool(np.isfinite(totals).all()), "train: non-finite loss")
     require(bool(torch.stack(oks).all()), "train: a step had non-finite gradients")
@@ -1237,9 +1238,9 @@ def cli_phase(torch, root):
     40 in a second model directory, and render the first model.  it/s is the
     median over the 10-step windows of the metrics log's timestamps (each
     logged step syncs the card)."""
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.cli import render_gaussians, train_gaussians
     from gaussianhaircut_torch.config import ModelConfig
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.scene import ply
     from gaussianhaircut_torch.scene.dataset import load_scene
     from gaussianhaircut_torch.scene.synthetic import bench_scene, write_colmap_scene
@@ -1262,12 +1263,12 @@ def cli_phase(torch, root):
               "--densification_interval", "10", "--opacity_reset_interval", "30"]
 
     torch.cuda.reset_peak_memory_stats()
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     state = train_gaussians.main(common + [
         "-m", m1, "--iterations", str(iters), "--test_iterations", "30", "60",
         "--save_iterations", "60", "--checkpoint_iterations", "30"])
     torch.cuda.synchronize()
-    train_launches = dict(cuda_core.launches)
+    train_launches = dict(loader.launches)
     require(train_launches["raster_bwd"] == iters,
             f"cli: raster_bwd launched {train_launches['raster_bwd']} times in {iters} steps")
     require(train_launches["raster_fwd"] == iters + n_evals * eval_views,
@@ -1288,22 +1289,22 @@ def cli_phase(torch, root):
               "cfg_args.json", f"point_cloud/iteration_{iters}/raw_point_cloud.ply"):
         require(os.path.exists(os.path.join(m1, f)), f"cli: {f} not written")
 
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     resumed = train_gaussians.main(common + [
         "-m", m2, "--iterations", "40",
         "--start_checkpoint", os.path.join(m1, "checkpoints", "30.npz")])
     torch.cuda.synchronize()
-    resume_launches = dict(cuda_core.launches)
+    resume_launches = dict(loader.launches)
     require(resumed.step == 40 and resume_launches["raster_bwd"] == 10
             and resume_launches["raster_fwd"] == 10,
             f"cli: resume from 30 to 40 launched {resume_launches}")
 
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     t0 = time.perf_counter()
     render_gaussians.main(["-s", src, "-m", m1, "--sh_degree", "3"])
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    render_launches = dict(cuda_core.launches)
+    render_launches = dict(loader.launches)
     require(render_launches["raster_fwd"] == N_VIEWS
             and render_launches["raster_bwd"] == 0,
             f"cli: render of {N_VIEWS} views launched {render_launches}")
@@ -1457,9 +1458,9 @@ def mesh_phase(torch, root):
     cli phase's scene (``root/scene``) and iteration-30 checkpoint."""
     import shutil
     import torch.distributed as dist
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.cli import render_gaussians
     from gaussianhaircut_torch.config import ModelConfig
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.parallel import tile_parallel
     from gaussianhaircut_torch.parallel import mesh as mesh_mod
     from gaussianhaircut_torch.render.renderer import default_background, render
@@ -1494,11 +1495,11 @@ def mesh_phase(torch, root):
     ref, ref_m = stage1.train_step(state, cb, gt, 0, **kw)
     mesh_mod.init_distributed(dev, store=dist.HashStore(), rank=0, world_size=1)
     mesh = mesh_mod.make_mesh2d(1, 1, dev)
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     one, one_m = tile_parallel.dp_tp_train_step(mesh, **kw)(state, cb, gt, [0])
     torch.cuda.synchronize()
     for k in launches:
-        launches[k]["1x1"] = cuda_core.launches[k]
+        launches[k]["1x1"] = loader.launches[k]
     backend = mesh.backend
     dist.destroy_process_group()
     want, got = stage1.checkpoint_arrays(ref), stage1.checkpoint_arrays(one)
@@ -1571,9 +1572,9 @@ def mesh_phase(torch, root):
     # (c) the CLI on a 2x2 mesh, four ranks, from an empty build directory
     # (the libraries this process loaded are set aside and put back, also
     # when the run fails, so that a later run starts from the same tree)
-    aside = cuda_core.BUILD_DIR + ".before_mesh"
+    aside = loader.BUILD_DIR + ".before_mesh"
     shutil.rmtree(aside, ignore_errors=True)
-    os.rename(cuda_core.BUILD_DIR, aside)
+    os.rename(loader.BUILD_DIR, aside)
     model = os.path.join(work, "model")
     t0 = time.perf_counter()
     try:
@@ -1586,12 +1587,12 @@ def mesh_phase(torch, root):
             "--test_iterations", str(MESH_ITERS), "--save_iterations", str(MESH_ITERS),
             "--checkpoint_iterations", str(MESH_ITERS)], timeout=400)
         cli_s = time.perf_counter() - t0
-        built = sorted(os.listdir(cuda_core.BUILD_DIR))
+        built = sorted(os.listdir(loader.BUILD_DIR))
     finally:
-        shutil.rmtree(cuda_core.BUILD_DIR, ignore_errors=True)
-        os.rename(aside, cuda_core.BUILD_DIR)
-    require(built == sorted(os.path.basename(cuda_core._lib_path(n))
-                            for n in cuda_core.SOURCES),
+        shutil.rmtree(loader.BUILD_DIR, ignore_errors=True)
+        os.rename(aside, loader.BUILD_DIR)
+    require(built == sorted(os.path.basename(loader._lib_path(n))
+                            for n in loader.SOURCES),
             f"mesh: the ranks' build left {built}")
     summary = [ln for ln in stdout.splitlines() if ln.startswith("mesh_summary ")]
     require(len(summary) == 1, f"mesh 2x2: {len(summary)} summary lines")
@@ -1617,11 +1618,11 @@ def mesh_phase(torch, root):
             f"mesh 2x2: checkpoint step {final.step}, PLY rows {n_ply}")
     require(stage1.state_digest(final) == summary["state_sha256"],
             "mesh 2x2: rank 0's checkpoint is not the state the ranks agreed on")
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     render_gaussians.main(["-s", src, "-m", model, "--sh_degree", "3"])
     torch.cuda.synchronize()
-    require(cuda_core.launches["raster_fwd"] == N_VIEWS,
-            f"mesh: render_gaussians of rank 0's model launched {dict(cuda_core.launches)}")
+    require(loader.launches["raster_fwd"] == N_VIEWS,
+            f"mesh: render_gaussians of rank 0's model launched {dict(loader.launches)}")
     out["runs"]["2x2"] = {
         "backend": summary["backend"], "cli_s": cli_s, "state_sha256": summary["state_sha256"],
         "step_ms": [r["step_ms"] for r in ranks],
@@ -1662,6 +1663,7 @@ def hold_close(got, want, what: str, rtol: float, atol_frac: float) -> dict:
 def batched_phase(torch, root, cfg, kernels):
     """The batched-camera step (module doc, phase batched), from the cli
     phase's scene (``root/scene``) and iteration-30 checkpoint."""
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from gaussianhaircut_torch.ops.rasterize import common as C
     from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
@@ -1697,10 +1699,10 @@ def batched_phase(torch, root, cfg, kernels):
         fields = fields_from_params(params, alive)
         inputs = [prepare_raster_inputs(fields, sh, g) for g in geoms]
         stacked = [torch.stack(x) for x in zip(*inputs)]
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         batch = rasterize_batched(*stacked, bg, WIDTH, HEIGHT, cfg)
-        require(cuda_core.launches["raster_fwd"] == 1,
-                f"batched: rasterize_batched of {N_VIEWS} views launched {cuda_core.launches}")
+        require(loader.launches["raster_fwd"] == 1,
+                f"batched: rasterize_batched of {N_VIEWS} views launched {loader.launches}")
         singles = [rasterize(*x, bg, WIDTH, HEIGHT, cfg) for x in inputs]
     for k in ("render", "final_T", "radii", "visibility"):
         for b, one in enumerate(singles):
@@ -1831,10 +1833,10 @@ def batched_phase(torch, root, cfg, kernels):
         step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         _, m = step()
         torch.cuda.synchronize()
-        launches = {k: cuda_core.launches[k] for k in ("raster_fwd", "raster_bwd")}
+        launches = {k: loader.launches[k] for k in ("raster_fwd", "raster_bwd")}
         peak = torch.cuda.max_memory_allocated() / 1e9
         ms = []
         for _ in range(BATCH_REPS):
@@ -1865,14 +1867,14 @@ def batched_phase(torch, root, cfg, kernels):
         if it in (BATCH_DENSIFY - 1, BATCH_DENSIFY, BATCH_ITERS):
             alive_at[it] = st.model.num_alive()
 
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     t0 = time.perf_counter()
     final = stage1.train(model_cfg, opt_cfg, PipelineConfig(tile=32), scene, device=dev,
                          camera_batch=2, progress_callback=progress, test_iterations=(),
                          save_iterations=(), checkpoint_iterations=())
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    launches = {k: cuda_core.launches[k] for k in ("raster_fwd", "raster_bwd")}
+    launches = {k: loader.launches[k] for k in ("raster_fwd", "raster_bwd")}
     totals = torch.stack(totals).cpu().numpy()
     require(final.step == BATCH_ITERS and bool(np.isfinite(totals).all()),
             f"batched: train(camera_batch=2) ended at step {final.step}, losses {totals}")
@@ -1905,9 +1907,9 @@ def viewer_phase(torch, scene, dev):
     import socket
     import struct
     import threading
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from gaussianhaircut_torch.models import gaussian_model as gm
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
     from gaussianhaircut_torch.render import network_gui
     from gaussianhaircut_torch.render.renderer import default_background, render
@@ -1968,7 +1970,7 @@ def viewer_phase(torch, scene, dev):
         sock = socket.create_connection(network_gui.listener.getsockname(), timeout=120)
         sock.settimeout(120)
         thread = threading.Thread(target=viewer, args=(sock,), daemon=True)
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         t0 = time.perf_counter()
         thread.start()
         state = stage1.train(
@@ -1978,7 +1980,7 @@ def viewer_phase(torch, scene, dev):
             PipelineConfig(tile=32), scene, device=dev, progress_callback=progress)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = dict(cuda_core.launches)
+        launches = dict(loader.launches)
         thread.join(120)
     finally:
         if network_gui.conn is not None:
@@ -2023,6 +2025,7 @@ def video_phase(torch, root):
     (the kernel's tile buffer bit for bit against the plain version's, and
     the PNG's bytes against the plain image's); the AVI's index read back to
     the frames' PNG bytes."""
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.cli import render_video
     from gaussianhaircut_torch.config import ModelConfig
     from gaussianhaircut_torch.models import gaussian_model as gm
@@ -2038,13 +2041,13 @@ def video_phase(torch, root):
     src, model = os.path.join(root, "scene"), os.path.join(root, "model")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     t0 = time.perf_counter()
     render_video.main(["-s", src, "-m", model, "--sh_degree", "3", "--tile", "32",
                        "--num_frames", str(VIDEO_FRAMES)])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = dict(cuda_core.launches)
+    launches = dict(loader.launches)
     require(launches["raster_fwd"] == VIDEO_FRAMES and launches["raster_bwd"] == 0,
             f"video: {VIDEO_FRAMES} frames launched {launches}")
     frames_dir = os.path.join(model, "video_frames")
@@ -2088,8 +2091,8 @@ def masks_phase(torch, data, root):
     hair, tests/test_masks_fallback.py:62-64); seconds per view, split into
     the min cuts and the rest (both on the card)."""
     import shutil
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.cli import calc_masks
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.utils.image import read_png
 
     t_phase = time.perf_counter()
@@ -2098,7 +2101,7 @@ def masks_phase(torch, data, root):
     for name in MASK_VIEWS:
         shutil.copy(os.path.join(data, "images", name), os.path.join(scene, "input", name))
     calc_masks.timings.update(min_cut_s=0.0, other_s=0.0)
-    cuda_core.reset_launch_counts()
+    loader.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     calc_masks.main(["--scene_path", scene, "--images_dir", "input"])
@@ -2121,7 +2124,7 @@ def masks_phase(torch, data, root):
             "pixels": views, "s_per_view": seconds / n,
             "min_cut_s_per_view": calc_masks.timings["min_cut_s"] / n,
             "other_s_per_view": calc_masks.timings["other_s"] / n,
-            "launches": dict(cuda_core.launches), "seconds": time.perf_counter() - t_phase}
+            "launches": dict(loader.launches), "seconds": time.perf_counter() - t_phase}
 
 
 def _metrics(path: str) -> list:
@@ -2165,13 +2168,13 @@ def strands_phase(torch, cfg, dev, keep_ckpt=None):
     ``keep_ckpt`` when given."""
     import shutil
     import tempfile
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.cli import (
         export_curves, train_gaussians, train_latent_strands, train_strands)
     from gaussianhaircut_torch.cli.render_gaussians import find_head_ply
     from gaussianhaircut_torch.models import gaussian_model as gm
     from gaussianhaircut_torch.models.textured_strands import (
         TexturedStrandsConfig, sample_roots, synthetic_scalp_pool)
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.scene.synthetic import bench_scene, write_colmap_scene
     from gaussianhaircut_torch.tools.profile_fixed import binned_fields, scene_camera
     from gaussianhaircut_torch.train import stage2, stage3
@@ -2209,12 +2212,12 @@ def strands_phase(torch, cfg, dev, keep_ckpt=None):
         def run(name, main, argv, path):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            cuda_core.reset_launch_counts()
+            loader.reset_launch_counts()
             t0 = time.perf_counter()
             state = main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(cuda_core.launches)
+            launches = dict(loader.launches)
             for k in ("raster_fwd", "raster_bwd"):
                 require(launches[k] == iters,
                         f"{name}: {k} launched {launches[k]} times in {iters} steps")
@@ -2228,18 +2231,14 @@ def strands_phase(torch, cfg, dev, keep_ckpt=None):
                                                                          "orient", "sds")}
                                       for r in recs},
                            "num_rendered_logged": {str(r["step"]): r["num_rendered"] for r in recs},
-                           "opt_tail_leaves_logged": sorted({r.get("opt_tail_leaves")
-                                                             for r in recs}, key=str),
                            "launches": launches,
                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
         s2, out["stage2"] = run("stage 2", train_latent_strands.main,
                                 flags + ["--model_path_hair", hair, "--use_diffusion"], hair)
-        leaves, logged = len(list(s2.params.parameters())), out["stage2"]["opt_tail_leaves_logged"]
-        require(logged == [leaves] and all(out["stage2"]["launches"][f"optim_tail_{k}"] == iters
-                                           for k in ("reduce", "finalize", "update")),
-                f"stage 2: the fused optimizer tail covered {logged} of {leaves} leaves, "
-                f"launches {out['stage2']['launches']}")
+        require(all(out["stage2"]["launches"][k] == iters for k in TAIL_ENTRIES),
+                f"stage 2: the fused optimizer tail launched {out['stage2']['launches']} "
+                f"in {iters} steps")
         with torch.no_grad():
             hair2, _ = stage2.hair_fields_from_strands(s2.params, pool, scfg, roots, radius)
             layout = stage2.concat_fields(head, hair2)
@@ -2271,13 +2270,13 @@ def strands_phase(torch, cfg, dev, keep_ckpt=None):
         require(back3.step == iters and torch.equal(back3.params.dirs, s3.params.dirs),
                 "stage 3: the checkpoint does not load back to the final state")
 
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         pts = export_curves.main(["--data_dir", root, "--model_name", "smoke",
                                   "--iter", str(iters)])
         require(pts.shape == (n_strands, length, 3) and bool(np.isfinite(pts).all()),
                 f"export: strands of shape {pts.shape}, finite {bool(np.isfinite(pts).all())}")
         require(np.array_equal(pts, stage3.export_points(s3)), "export: not the final strands")
-        out["export"] = {"shape": list(pts.shape), "launches": dict(cuda_core.launches),
+        out["export"] = {"shape": list(pts.shape), "launches": dict(loader.launches),
                          "files": sorted(os.listdir(os.path.join(curves, "strands")))}
         if keep_ckpt:
             shutil.move(ck2, keep_ckpt)
@@ -2435,12 +2434,12 @@ def pipeline_phase(torch, layout, cfg, then=None):
     import pickle
     import shutil
     import tempfile
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.cli import export_strands, metrics, render_strands, run_pipeline
     from gaussianhaircut_torch.cli.metrics import load_rgb
     from gaussianhaircut_torch.models import gaussian_model as gm
     from gaussianhaircut_torch.models.textured_strands import TexturedStrandsConfig
     from gaussianhaircut_torch.ops.lpips import lpips_or_none
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.preprocessing import orientation_maps as om
     from gaussianhaircut_torch.preprocessing.scene_tools import winding_numbers
     from gaussianhaircut_torch.tools.profile_fixed import cuda_ms
@@ -2462,8 +2461,8 @@ def pipeline_phase(torch, layout, cfg, then=None):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda_core.reset_launch_counts()
-        clock = StageClock(torch, sys.stdout, cuda_core.launches, run_pipeline.stages_done)
+        loader.reset_launch_counts()
+        clock = StageClock(torch, sys.stdout, loader.launches, run_pipeline.stages_done)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(clock):
             run_pipeline.main(["--data_path", data, "--iters1", str(i1), "--iters2", str(i2),
@@ -2473,7 +2472,7 @@ def pipeline_phase(torch, layout, cfg, then=None):
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["stage_seconds"] = clock.seconds
         out["launches_by_stage"] = clock.stage_launches
-        out["launches"] = dict(cuda_core.launches)
+        out["launches"] = dict(loader.launches)
         out["sphere_crop"] = clock.notes
         # one forward per rendered view, one forward and backward per step
         expect = {"stage1": (i1, i1), "render_gaussians": (PIPE_VIEWS, 0),
@@ -2567,7 +2566,7 @@ def pipeline_phase(torch, layout, cfg, then=None):
         out["orientation"] = orient
 
         # render_strands again, timed on its own
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         t0 = time.perf_counter()
         render_strands.main(["-s", data, "-m", model, "--model_hair_path",
                              os.path.join(root, "rerender"), "--checkpoint_curves",
@@ -2575,9 +2574,9 @@ def pipeline_phase(torch, layout, cfg, then=None):
                                           "checkpoints", f"{i3}.npz"), "--skip_test"])
         torch.cuda.synchronize()
         out["render_strands_s_per_view"] = (time.perf_counter() - t0) / PIPE_VIEWS
-        require(cuda_core.launches["raster_fwd"] == PIPE_VIEWS
-                and cuda_core.launches["raster_bwd"] == 0,
-                f"pipeline: render_strands launched {dict(cuda_core.launches)}")
+        require(loader.launches["raster_fwd"] == PIPE_VIEWS
+                and loader.launches["raster_bwd"] == 0,
+                f"pipeline: render_strands launched {dict(loader.launches)}")
 
         # export_strands at 30,000 strands, pruned by the head on the card
         flame = os.path.join(data, "flame_fitting", "stage1")
@@ -2679,15 +2678,15 @@ def quality_phase(torch, dev):
     """The strand gate, the stage-1 harness at QUALITY_r05.json's widths and
     the full-width distillation: the checks of the module docstring's item
     11."""
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch import kernels as loader
 
     def launched(fn):
         torch.cuda.synchronize()
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
-        return res, dict(cuda_core.launches), time.perf_counter() - t0
+        return res, dict(loader.launches), time.perf_counter() - t0
 
     out = {"phase": "quality"}
     gate, launches, secs = launched(lambda: strand_gate(torch, dev))
@@ -2854,10 +2853,10 @@ def tools_phase(torch, root, ck2, scene, fields, cfg, dev):
     tools), each given ``--device`` ``dev``: ``ck2`` is the strands phase's
     stage-2 checkpoint, ``fields`` its final layout.  Each part's seconds,
     launches and peak memory."""
+    from gaussianhaircut_torch import kernels as loader
     from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from gaussianhaircut_torch.models import prior_io
     from gaussianhaircut_torch.ops.lpips import LPIPS, synthesize_weights
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.preprocessing import iqa
     from gaussianhaircut_torch.render.renderer import default_background, render_fields
     from gaussianhaircut_torch.tools import (
@@ -2876,14 +2875,14 @@ def tools_phase(torch, root, ck2, scene, fields, cfg, dev):
         path = list(sys.path)           # an upstream tree goes on the path
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda_core.reset_launch_counts()
+        loader.reset_launch_counts()
         t0 = time.perf_counter()
         try:
             res = fn()
         finally:
             sys.path[:] = path
         torch.cuda.synchronize()
-        out[name] = dict(res, s=time.perf_counter() - t0, launches=dict(cuda_core.launches),
+        out[name] = dict(res, s=time.perf_counter() - t0, launches=dict(loader.launches),
                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         return out[name]
 
@@ -2998,7 +2997,7 @@ def tools_phase(torch, root, ck2, scene, fields, cfg, dev):
         metrics = []
         model_cfg = ModelConfig()
         torch.cuda.synchronize()
-        before = dict(cuda_core.launches)
+        before = dict(loader.launches)
         stage2.train(model_cfg, OptimizationConfig(iterations=1, lambda_dmask=0.1,
                                                    lambda_dorient=0.1, lambda_dsds=0.01,
                                                    train_orient_conf=False),
@@ -3008,7 +3007,7 @@ def tools_phase(torch, root, ck2, scene, fields, cfg, dev):
                      progress_callback=lambda it, st, m: metrics.append(
                          {k: float(m[k]) for k in ("total", "l1", "sds")}), device=dev)
         torch.cuda.synchronize()
-        step = {k: n - before[k] for k, n in cuda_core.launches.items()}
+        step = {k: n - before[k] for k, n in loader.launches.items()}
         require(step["raster_fwd"] == 1 and step["raster_bwd"] == 1,
                 f"convert_neuralhaircut_ckpt: the stage-2 step launched {step}")
         require(len(metrics) == 1 and all(np.isfinite(v) for v in metrics[0].values()),

@@ -19,16 +19,14 @@ runs, in float32 with the same clamps and eps terms, rounded as that
 composition is on the card: ndc, conic and depth, which the binning and the
 compositing kernels decide on, equal its bit for bit; the colours and the
 gradients differ from autograd's by rounding.  SH degrees 0-3 are taken;
-another raises.  Each launch adds one to ``cuda_core.launches`` under its C
+another raises.  Each launch adds one to ``kernels.launches`` under its C
 entry point.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from gaussianhaircut_torch.ops.rasterize import cuda_core
+from gaussianhaircut_torch import kernels
 
 # csrc/precompute.cu's constants, checked against the library at first use:
 # threads per block (one Gaussian each), camera values summed per block,
@@ -38,6 +36,8 @@ CAM_VALUES = 33
 CAM_FLOATS = 37
 MAX_SH_ROWS = 25
 MAX_DEGREE = 3
+LAYOUT = {"threads": THREADS, "camera values": CAM_VALUES, "camera floats": CAM_FLOATS,
+          "SH rows": MAX_SH_ROWS}
 
 
 def check_degree(deg: int) -> None:
@@ -46,36 +46,7 @@ def check_degree(deg: int) -> None:
                          f"not SH degree {deg}")
 
 
-_layout_checked = False
-
-
-def _check_layout() -> None:
-    global _layout_checked
-    if _layout_checked:
-        return
-    fn = cuda_core.library("precompute").precompute_layout
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    fn(out)
-    want = (THREADS, CAM_VALUES, CAM_FLOATS, MAX_SH_ROWS)
-    if tuple(out) != want:
-        raise RuntimeError(f"csrc/precompute.cu's layout {tuple(out)} is not the wrapper's "
-                           f"{want} (threads, camera values, camera floats, SH rows)")
-    _layout_checked = True
-
-
-def _f32(what: str, t: torch.Tensor, device, shape) -> torch.Tensor:
-    """``t`` checked: float32, on ``device``, of ``shape`` (or of one element
-    where ``shape`` is None)."""
-    if (t.dtype is not torch.float32 or t.device != device
-            or (t.numel() != 1 if shape is None else tuple(t.shape) != tuple(shape))):
-        raise ValueError(f"precompute: {what} is {t.dtype} {tuple(t.shape)} on {t.device}; "
-                         f"expected float32 {'of one element' if shape is None else tuple(shape)}"
-                         f" on {device}")
-    return t
-
-
-def _ptr(t: torch.Tensor | None) -> int | None:
+def _addr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
@@ -94,12 +65,12 @@ class _Precompute(torch.autograd.Function):
         colors = torch.empty((n, 10), dtype=torch.float32, device=dev)
         depth = torch.empty((n,), dtype=torch.float32, device=dev)
         if n:
-            cuda_core.launch("precompute_fwd", xyz.data_ptr(), features.data_ptr(),
-                             scaling.data_ptr(), rot.data_ptr(), label.data_ptr(),
-                             orient_conf.data_ptr(), viewspace.data_ptr(), _ptr(use_direction),
-                             cam.data_ptr(), ndc.data_ptr(), conic.data_ptr(),
-                             colors.data_ptr(), depth.data_ptr(), n, rows, deg, width,
-                             height, mod, torch.cuda.current_stream(dev).cuda_stream)
+            kernels.launch("precompute_fwd", xyz.data_ptr(), features.data_ptr(),
+                           scaling.data_ptr(), rot.data_ptr(), label.data_ptr(),
+                           orient_conf.data_ptr(), viewspace.data_ptr(), _addr(use_direction),
+                           cam.data_ptr(), ndc.data_ptr(), conic.data_ptr(),
+                           colors.data_ptr(), depth.data_ptr(), n, rows, deg, width,
+                           height, mod, torch.cuda.current_stream(dev).cuda_stream)
         ctx.save_for_backward(xyz, features, scaling, rot, use_direction, cam)
         ctx.meta = (deg, mod, width, height,
                     [t.shape for t in (viewmatrix, projmatrix, campos, tan_fovx, tan_fovy)])
@@ -126,17 +97,17 @@ class _Precompute(torch.autograd.Function):
                 if cam_grad else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if n:
-            _check_layout()
-            cuda_core.launch("precompute_bwd", xyz.data_ptr(), features.data_ptr(),
-                             scaling.data_ptr(), rot.data_ptr(), _ptr(use_direction),
-                             cam.data_ptr(), *map(_ptr, grads),
-                             *map(_ptr, out), _ptr(g_label), _ptr(g_oc), _ptr(part), n, rows,
-                             deg, width, height, mod, stream)
+            kernels.check_layout("precompute", LAYOUT)
+            kernels.launch("precompute_bwd", xyz.data_ptr(), features.data_ptr(),
+                           scaling.data_ptr(), rot.data_ptr(), _addr(use_direction),
+                           cam.data_ptr(), *map(_addr, grads),
+                           *map(_addr, out), _addr(g_label), _addr(g_oc), _addr(part), n, rows,
+                           deg, width, height, mod, stream)
         g_cam = [None] * 5
         if cam_grad:
             flat = torch.empty(CAM_FLOATS, dtype=torch.float32, device=dev)
-            cuda_core.launch("precompute_cam_reduce", _ptr(part), blocks, flat.data_ptr(),
-                             stream)
+            kernels.launch("precompute_cam_reduce", _addr(part), blocks, flat.data_ptr(),
+                           stream)
             cuts = (0, 16, 32, 35, 36, 37)
             g_cam = [flat[a:b].view(shape) if need[8 + k] else None
                      for k, (a, b, shape) in enumerate(zip(cuts, cuts[1:], cam_shapes))]
@@ -162,20 +133,24 @@ def precompute_cuda(xyz, features, scaling, rotation_matrix, label, orient_conf,
                          f"{MAX_SH_ROWS} at SH degree {active_sh_degree}")
     # the per-Gaussian fields in rows (a copy, through autograd, where they
     # are not); the camera's tensors as they are, packed by the forward
-    args = [_f32(name, t, dev, shape).contiguous() for name, t, shape in (
+    f32 = torch.float32
+    args = [kernels.check_arg(f"precompute: {name}", t, f32, shape, dev, contiguous=False)
+            .contiguous() for name, t, shape in (
         ("xyz", xyz, (n, 3)), ("features", features, (n, rows, 3)),
         ("scaling", scaling, (n, 3)), ("rotation_matrix", rotation_matrix, (n, 3, 3)),
         ("label", label, (n, 1)), ("orient_conf", orient_conf, (n, 1)),
         ("viewspace", viewspace, (n, 3)))]
     args.append(None if use_direction is None
-                else _f32("use_direction", use_direction, dev, (n,)).contiguous())
-    cam_args = [_f32(name, t if isinstance(t, torch.Tensor)
-                     else torch.tensor(t, dtype=torch.float32, device=dev), dev, shape)
+                else kernels.check_arg("precompute: use_direction", use_direction, f32, (n,),
+                                       dev, contiguous=False).contiguous())
+    cam_args = [kernels.check_arg(f"precompute: {name}", t if isinstance(t, torch.Tensor)
+                                  else torch.tensor(t, dtype=f32, device=dev), f32, shape, dev,
+                                  contiguous=False)
                 for name, t, shape in (("viewmatrix", cam.viewmatrix, (4, 4)),
                                        ("projmatrix", cam.projmatrix, (4, 4)),
                                        ("campos", cam.campos, (3,)),
-                                       ("tan_fovx", cam.tan_fovx, None),
-                                       ("tan_fovy", cam.tan_fovy, None))]
+                                       ("tan_fovx", cam.tan_fovx, kernels.ONE),
+                                       ("tan_fovy", cam.tan_fovy, kernels.ONE))]
     if not xyz.is_cuda:
         raise ValueError(f"precompute_cuda: expected CUDA fields, got {dev}")
     return _Precompute.apply(*args, *cam_args, active_sh_degree, float(scaling_modifier),

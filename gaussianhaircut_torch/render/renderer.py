@@ -45,7 +45,6 @@ class Precomputed(NamedTuple):
     conic: torch.Tensor        # [P, 3]
     colors: torch.Tensor       # [P, 10]
     depth: torch.Tensor        # [P]
-    fused_gaussians: int       # the Gaussians the kernel covered (0 on the plain path)
 
 
 def precompute(fields: GaussianFields, active_sh_degree: int, cam: proj.CameraGeom,
@@ -58,8 +57,8 @@ def precompute(fields: GaussianFields, active_sh_degree: int, cam: proj.CameraGe
             fields.xyz, fields.features, fields.scaling, fields.rotation_matrix,
             fields.label, fields.orient_conf, fields.viewspace, fields.use_direction, cam,
             active_sh_degree, scaling_modifier)
-        return Precomputed(*out, fields.xyz.shape[0])
-    return Precomputed(*precompute_plain(fields, active_sh_degree, cam, scaling_modifier), 0)
+        return Precomputed(*out)
+    return Precomputed(*precompute_plain(fields, active_sh_degree, cam, scaling_modifier))
 
 
 def precompute_plain(fields: GaussianFields, active_sh_degree: int,
@@ -94,7 +93,7 @@ def prepare_raster_inputs(fields: GaussianFields, active_sh_degree: int,
                           cam: proj.CameraGeom, scaling_modifier: float = 1.0):
     """Differentiable precompute -> (ndc, conic, colors10, opacity, depth,
     valid) (``precompute``; opacity and valid pass through)."""
-    ndc, conic, colors, depth, _ = precompute(fields, active_sh_degree, cam, scaling_modifier)
+    ndc, conic, colors, depth = precompute(fields, active_sh_degree, cam, scaling_modifier)
     return ndc, conic, colors, fields.opacity, depth, fields.valid
 
 
@@ -120,9 +119,7 @@ def render_fields(fields: GaussianFields, active_sh_degree: int,
                   cam: proj.CameraGeom, bg: torch.Tensor,
                   cfg: RasterConfig | None = None,
                   scaling_modifier: float = 1.0) -> dict:
-    """Render activated fields through the compositing kernels and decode;
-    ``precompute_gaussians`` is the Gaussians the precompute's kernel
-    covered (0 on the CPU)."""
+    """Render activated fields through the compositing kernels and decode."""
     pre = precompute(fields, active_sh_degree, cam, scaling_modifier)
     out = rasterize(pre.ndc, pre.conic, pre.colors, fields.opacity, pre.depth, fields.valid,
                     bg, cam.width, cam.height, cfg)
@@ -133,7 +130,6 @@ def render_fields(fields: GaussianFields, active_sh_degree: int,
         "radii": out["radii"],
         "num_rendered": out["num_rendered"],
         "num_rendered_3sigma": out["num_rendered_3sigma"],
-        "precompute_gaussians": pre.fused_gaussians,
     })
     return decoded
 
@@ -147,14 +143,13 @@ def render_fields_batched(fields: GaussianFields, active_sh_degree: int,
     replaces the viewspace port camera by camera, so that its gradient
     comes back per camera (the densify statistics read each camera's on its
     own).  Returns the decoded dict with a leading [B] axis on every image
-    and per-Gaussian output; ``num_rendered`` and ``precompute_gaussians``
-    are the totals over cameras."""
+    and per-Gaussian output; ``num_rendered`` is the total over cameras."""
     per_cam = []
     for b, cam in enumerate(cams):
         f = (fields if viewspace_batch is None
              else dataclasses.replace(fields, viewspace=viewspace_batch[b]))
         per_cam.append(precompute(f, active_sh_degree, cam))
-    ndc, conic, colors, depth = (torch.stack(x) for x in zip(*(p[:4] for p in per_cam)))
+    ndc, conic, colors, depth = (torch.stack(x) for x in zip(*per_cam))
     opacity, valid = (torch.stack([x] * len(cams)) for x in (fields.opacity, fields.valid))
     out = rasterize_batched(ndc, conic, colors, opacity, depth, valid, bg,
                             cams[0].width, cams[0].height, cfg)
@@ -166,7 +161,6 @@ def render_fields_batched(fields: GaussianFields, active_sh_degree: int,
         "radii": out["radii"],
         "num_rendered": out["num_rendered"],
         "num_rendered_3sigma": out["num_rendered_3sigma"],
-        "precompute_gaussians": sum(p.fused_gaussians for p in per_cam),
     })
     return decoded
 

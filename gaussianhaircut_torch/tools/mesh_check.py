@@ -37,8 +37,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gaussianhaircut_torch import kernels
 from gaussianhaircut_torch.config import OptimizationConfig
-from gaussianhaircut_torch.ops.rasterize import cuda_core
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.parallel import data_parallel, tile_parallel
 from gaussianhaircut_torch.parallel.mesh import init_distributed, make_mesh2d, parse_mesh_spec
@@ -76,7 +76,7 @@ def one_step(mesh, state, cam_batch, gt, cams, step_kw, make_step=None):
     """One mesh step with the launch counts and the mesh's collective
     counts from 0 -> (new_state, record)."""
     make_step = make_step or tile_parallel.dp_tp_train_step
-    cuda_core.reset_launch_counts()
+    kernels.reset_launch_counts()
     calls0, bytes0 = mesh.stats.calls, mesh.stats.bytes
     new_state, metrics = make_step(mesh, **step_kw)(state, cam_batch, gt, cams)
     if mesh.device.type == "cuda":
@@ -84,7 +84,7 @@ def one_step(mesh, state, cam_batch, gt, cams, step_kw, make_step=None):
     rec = {"rank": mesh.rank, "mesh": f"{mesh.n_data}x{mesh.n_tile}", "cams": list(cams),
            "backend": mesh.backend, "device": str(mesh.device),
            "metrics": {k: float(v) for k, v in metrics.items()},
-           "launches": {k: cuda_core.launches[k] for k in ("raster_fwd", "raster_bwd")},
+           "launches": {k: kernels.launches[k] for k in ("raster_fwd", "raster_bwd")},
            "collective_calls": mesh.stats.calls - calls0,
            "bytes_per_step": mesh.stats.bytes - bytes0}
     return new_state, rec

@@ -15,18 +15,17 @@ Both update in place: the parameters, the EMA and the optimizer state's
 ``mu``, ``nu`` and ``count`` tensors.  A step with a non-finite gradient
 keeps the parameters, the moments and the count, and still moves the EMA.
 
-Each launch adds one to ``cuda_core.launches`` under its C entry point
+Each launch adds one to ``kernels.launches`` under its C entry point
 (``optim_tail_reduce``, ``optim_tail_finalize``, ``optim_tail_update``).
 """
 from __future__ import annotations
 
 import bisect
 import ctypes
-from typing import NamedTuple
 
 import torch
 
-from gaussianhaircut_torch.ops.rasterize import cuda_core
+from gaussianhaircut_torch import kernels
 from gaussianhaircut_torch.train import optim
 
 # csrc/optim_tail.cu's constants, checked against the library at first use:
@@ -46,9 +45,8 @@ class _Table(ctypes.Structure):
                 *((name, ctypes.c_void_p * MAX_LEAVES) for name in "gpmve")]
 
 
-class TailResult(NamedTuple):
-    grad_norm: torch.Tensor     # device scalar: the gradients' global norm before the clip
-    fused_leaves: int           # leaves the kernel covered (0 on the plain path)
+LAYOUT = {"chunk": CHUNK, "threads": THREADS, "blocks per SM": BLOCKS_PER_SM,
+          "leaves": MAX_LEAVES, "table bytes": ctypes.sizeof(_Table)}
 
 
 def chunk_plan(sizes) -> list[int]:
@@ -80,20 +78,21 @@ def chunk_ranges(sizes, chunk_start: list[int]) -> list[tuple[int, int, int]]:
 @torch.no_grad()
 def adamw_tail_(params: dict, grads: dict, opt_state: optim.AdamState, ema_pairs, lr: float,
                 clip: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                weight_decay: float = 0.01, decay: float = 0.995) -> TailResult:
+                weight_decay: float = 0.01, decay: float = 0.995) -> torch.Tensor:
     """One AdamW step of ``params`` (name -> leaf) from ``grads`` (name ->
     gradient), in place, behind the NaN guard and, with ``clip`` > 0, the
     global-norm clip; then ``e = decay * e + (1 - decay) * p`` for each
     (e, p) of ``ema_pairs``, every p one of ``params``' leaves.  CUDA
     parameters launch the kernels (``tail_tables`` then refuses a gradient,
     moment, EMA or count elsewhere), CPU parameters run
-    ``adamw_tail_plain_``."""
+    ``adamw_tail_plain_``.  Returns the gradients' global norm before the
+    clip (a device scalar)."""
     if not next(iter(params.values())).is_cuda:
-        return TailResult(adamw_tail_plain_(params, grads, opt_state, ema_pairs, lr, clip, b1,
-                                            b2, eps, weight_decay, decay), 0)
+        return adamw_tail_plain_(params, grads, opt_state, ema_pairs, lr, clip, b1, b2, eps,
+                                 weight_decay, decay)
     table, grid = tail_tables(params, grads, opt_state, ema_pairs)
-    return TailResult(launch_tail(table, grid, opt_state.count, lr, clip, b1, b2, eps,
-                                  weight_decay, decay), len(params))
+    return launch_tail(table, grid, opt_state.count, lr, clip, b1, b2, eps, weight_decay,
+                       decay)
 
 
 @torch.no_grad()
@@ -124,33 +123,6 @@ def adamw_tail_plain_(params: dict, grads: dict, opt_state: optim.AdamState, ema
     return gnorm
 
 
-def _ptr(what: str, t: torch.Tensor, device, dtype, shape) -> int:
-    if t.dtype is not dtype or t.device != device or t.shape != shape or not t.is_contiguous():
-        raise ValueError(f"optim_tail: {what} is {t.dtype} {tuple(t.shape)} on {t.device}"
-                         f"{'' if t.is_contiguous() else ', not contiguous'}; expected "
-                         f"contiguous {dtype} {tuple(shape)} on {device}")
-    return t.data_ptr()
-
-
-_layout_checked = False
-
-
-def _check_layout() -> None:
-    """The library's constants and table size against this module's."""
-    global _layout_checked
-    if _layout_checked:
-        return
-    fn = cuda_core.library("optim_tail").optim_tail_layout
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    fn(out)
-    want = (CHUNK, THREADS, BLOCKS_PER_SM, MAX_LEAVES, ctypes.sizeof(_Table))
-    if tuple(out) != want:
-        raise RuntimeError(f"csrc/optim_tail.cu's layout {tuple(out)} is not the wrapper's "
-                           f"{want} (chunk, threads, blocks per SM, leaves, table bytes)")
-    _layout_checked = True
-
-
 def tail_tables(params: dict, grads: dict, opt_state: optim.AdamState,
                 ema_pairs) -> tuple[_Table, int]:
     """The kernels' leaf table and grid size for one call, every tensor
@@ -158,7 +130,8 @@ def tail_tables(params: dict, grads: dict, opt_state: optim.AdamState,
     contiguous; the count int32)."""
     device = next(iter(params.values())).device
     f32 = torch.float32
-    _ptr("count", opt_state.count, device, torch.int32, ())
+    arg = kernels.check_arg
+    arg("optim_tail: count", opt_state.count, torch.int32, (), device)
     ema = {id(p): e for e, p in ema_pairs}
     if len(ema) != len(ema_pairs) or not ema.keys() <= {id(p) for p in params.values()}:
         raise ValueError("optim_tail: every EMA pair's parameter must be a distinct leaf "
@@ -171,12 +144,13 @@ def tail_tables(params: dict, grads: dict, opt_state: optim.AdamState,
     t.numel[:len(sizes)] = sizes
     for i, (n, p) in enumerate(params.items()):
         shape = p.shape
-        t.g[i] = _ptr(f"grads[{n!r}]", grads[n], device, f32, shape)
-        t.p[i] = _ptr(f"params[{n!r}]", p, device, f32, shape)
-        t.m[i] = _ptr(f"mu[{n!r}]", opt_state.mu[n], device, f32, shape)
-        t.v[i] = _ptr(f"nu[{n!r}]", opt_state.nu[n], device, f32, shape)
+        t.g[i] = arg(f"optim_tail: grads[{n!r}]", grads[n], f32, shape, device).data_ptr()
+        t.p[i] = arg(f"optim_tail: params[{n!r}]", p, f32, shape, device).data_ptr()
+        t.m[i] = arg(f"optim_tail: mu[{n!r}]", opt_state.mu[n], f32, shape, device).data_ptr()
+        t.v[i] = arg(f"optim_tail: nu[{n!r}]", opt_state.nu[n], f32, shape, device).data_ptr()
         e = ema.get(id(p))
-        t.e[i] = None if e is None else _ptr(f"ema of {n!r}", e, device, f32, shape)
+        t.e[i] = (None if e is None
+                  else arg(f"optim_tail: ema of {n!r}", e, f32, shape, device).data_ptr())
     grid_cap = torch.cuda.get_device_properties(device).multi_processor_count * BLOCKS_PER_SM
     return t, max(1, min(grid_cap, t.num_chunks))
 
@@ -187,17 +161,17 @@ def launch_tail(table: _Table, grid: int, count: torch.Tensor, lr: float, clip: 
     """The three kernels on ``tail_tables``' table (reduce, finalize,
     update) on the current stream.  Returns the global norm (a device
     scalar)."""
-    _check_layout()
+    kernels.check_layout("optim_tail", LAYOUT)
     device = count.device
     part_sq = torch.empty(grid, dtype=torch.float64, device=device)
     part_bad = torch.empty(grid, dtype=torch.int32, device=device)
     scalars = torch.empty(5, dtype=torch.float32, device=device)   # scale, ok, c1, c2, norm
     stream = torch.cuda.current_stream(device).cuda_stream
-    cuda_core.launch("optim_tail_reduce", ctypes.addressof(table), grid, part_sq.data_ptr(),
-                     part_bad.data_ptr(), stream)
-    cuda_core.launch("optim_tail_finalize", part_sq.data_ptr(), part_bad.data_ptr(), grid,
-                     count.data_ptr(), scalars.data_ptr(), clip, b1, b2, stream)
-    cuda_core.launch("optim_tail_update", ctypes.addressof(table), grid, scalars.data_ptr(),
-                     -lr, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, decay, 1.0 - decay,
-                     stream)
+    kernels.launch("optim_tail_reduce", ctypes.addressof(table), grid, part_sq.data_ptr(),
+                   part_bad.data_ptr(), stream)
+    kernels.launch("optim_tail_finalize", part_sq.data_ptr(), part_bad.data_ptr(), grid,
+                   count.data_ptr(), scalars.data_ptr(), clip, b1, b2, stream)
+    kernels.launch("optim_tail_update", ctypes.addressof(table), grid, scalars.data_ptr(),
+                   -lr, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, decay, 1.0 - decay,
+                   stream)
     return scalars[4]

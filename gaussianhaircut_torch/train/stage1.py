@@ -31,12 +31,12 @@ import time
 import numpy as np
 import torch
 
+from gaussianhaircut_torch import kernels
 from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
 from gaussianhaircut_torch.device import resolve_device
 from gaussianhaircut_torch.models import gaussian_model as gm
 from gaussianhaircut_torch.ops import losses as L
 from gaussianhaircut_torch.ops import projection as proj
-from gaussianhaircut_torch.ops.rasterize import cuda_core
 from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
 from gaussianhaircut_torch.ops.ssim import ssim
 from gaussianhaircut_torch.render import network_gui
@@ -184,11 +184,9 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
                trainable_cameras: bool, trainable_intrinsics: bool,
                use_barf: bool, white_background: bool):
     """One stage-1 step on camera ``cam_idx``.  Returns (new_state,
-    metrics); metrics hold device scalars plus ``num_rendered``,
-    ``num_rendered_3sigma`` and ``precompute_gaussians`` (ints: the
-    instances binned, those that the reference's 3-sigma tile rect would
-    bin, and the Gaussians the precompute's kernel covered, 0 on the
-    CPU)."""
+    metrics); metrics hold device scalars plus ``num_rendered`` and
+    ``num_rendered_3sigma`` (ints: the instances binned and those that the
+    reference's 3-sigma tile rect would bin)."""
     device = state.model.params.xyz.device
     bg = default_background(white_background, device)
     alive = state.model.aux.alive
@@ -215,7 +213,6 @@ def train_step(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["num_rendered"] = out["num_rendered"]
     metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
-    metrics["precompute_gaussians"] = out["precompute_gaussians"]
     metrics["grads_ok"] = ok
     return new_state, metrics
 
@@ -239,8 +236,8 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     (frozen) viewspace take their camera mean as the mesh step's do, where
     the JAX step gives them zero.  At B = 1 this is ``train_step`` bit for
     bit.  Returns (new_state, metrics): the loss terms averaged over
-    cameras, ``num_rendered``, ``num_rendered_3sigma`` and
-    ``precompute_gaussians`` the totals over them (ints)."""
+    cameras, ``num_rendered`` and ``num_rendered_3sigma`` the totals over
+    them (ints)."""
     cam_idxs = [int(i) for i in cam_idxs]
     n = len(cam_idxs)
     if n < 1 or len(set(cam_idxs)) != n:
@@ -287,7 +284,6 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     metrics = {k: torch.stack([p[k] for p in parts]).detach().mean() for k in parts[0]}
     metrics["num_rendered"] = out["num_rendered"]
     metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
-    metrics["precompute_gaussians"] = out["precompute_gaussians"]
     metrics["grads_ok"] = ok
     return new_state, metrics
 
@@ -642,7 +638,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     stack: list[int] = []
     ema = 0.0
     warned_slots = False
-    first_step, launches0 = state.step, dict(cuda_core.launches)
+    first_step, launches0 = state.step, dict(kernels.launches)
     t_loop = time.perf_counter()
     for iteration in range(state.step + 1, opt_cfg.iterations + 1):
         sh_deg = min(iteration // 1000, model_cfg.sh_degree)
@@ -760,7 +756,7 @@ def _mesh_summary(mesh, state: TrainState, steps: int, seconds: float,
     from gaussianhaircut_torch.parallel import collectives as coll
     digest = np.frombuffer(bytes.fromhex(state_digest(state)), np.uint32)
     steps = max(steps, 1)
-    fwd, bwd = (cuda_core.launches[k] - launches0[k] for k in ("raster_fwd", "raster_bwd"))
+    fwd, bwd = (kernels.launches[k] - launches0[k] for k in ("raster_fwd", "raster_bwd"))
     rec = torch.tensor([seconds * 1e3 / steps, mesh.stats.seconds() * 1e3 / steps,
                         mesh.stats.bytes / steps, fwd, bwd, *digest.astype(np.float64)],
                        dtype=torch.float64, device=mesh.device)

@@ -262,11 +262,9 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
                total_iters: int = 20000, draws: Stage2Draws | None = None):
     """One stage-2 step.  Returns (state, metrics): the parameters, the EMA
     and the optimizer state are updated in place (``optim_tail.adamw_tail_``),
-    the rest is new; metrics hold device scalars, ``num_rendered``,
-    ``num_rendered_3sigma`` (the instances that the reference's 3-sigma tile
-    rect would bin), ``opt_tail_leaves`` and ``precompute_gaussians`` (ints:
-    the leaves the fused optimizer pass covered and the Gaussians the
-    precompute's kernel covered, 0 on the CPU)."""
+    the rest is new; metrics hold device scalars, ``num_rendered`` and
+    ``num_rendered_3sigma`` (ints: the latter the instances that the
+    reference's 3-sigma tile rect would bin)."""
     device = state.params.texture.device
     bg = default_background(white_background, device)
     if draws is None:
@@ -294,15 +292,14 @@ def train_step(state: HairTrainState, head: GaussianFields, pool: ScalpPool,
     lr = 1e-4 + 0.5 * (base_lr - 1e-4) * (1 + math.cos(math.pi * state.step / total_iters))
     ema_pairs = ([] if state.ema is None else
                  list(zip(state.ema.parameters(), state.params.denoiser.parameters())))
-    tail = optim_tail.adamw_tail_(dict(zip(names, leaves)), grads, state.opt, ema_pairs, lr,
-                                  opt_cfg.hair_grad_clip, decay=opt_cfg.diffusion_ema_decay)
+    grad_norm = optim_tail.adamw_tail_(dict(zip(names, leaves)), grads, state.opt, ema_pairs,
+                                       lr, opt_cfg.hair_grad_clip,
+                                       decay=opt_cfg.diffusion_ema_decay)
     if opt_cfg.hair_grad_clip > 0:
-        parts["grad_norm"] = tail.grad_norm
+        parts["grad_norm"] = grad_norm
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["num_rendered"] = out["num_rendered"]
     metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
-    metrics["opt_tail_leaves"] = tail.fused_leaves
-    metrics["precompute_gaussians"] = out["precompute_gaussians"]
     return dataclasses.replace(state, step=state.step + 1), metrics
 
 

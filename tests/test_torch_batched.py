@@ -26,6 +26,7 @@ from gaussianhaircut_tpu.scene.cameras import CameraBatch as JCameraBatch
 from gaussianhaircut_tpu.scene.dataset import SceneData
 from gaussianhaircut_tpu.models import gaussian_model as j_gm
 from gaussianhaircut_tpu.train import stage1 as j_stage1
+from gaussianhaircut_torch import kernels
 from gaussianhaircut_torch.ops.rasterize import common as C
 from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
 from gaussianhaircut_torch.ops.rasterize.api import (
@@ -298,11 +299,12 @@ def test_train_step_batched_one_camera_is_train_step(runs, cam):
     metrics."""
     cb, gt, _ = _batch(runs.tcams)
     kw = _step_kw()
+    launches = dict(kernels.launches)
     ref, rm = stage1.train_step(runs.tstate, cb, gt, cam, **kw)
     got, m = stage1.train_step_batched(runs.tstate, cb, gt, [cam], **kw)
+    assert kernels.launches == launches           # the CPU runs the compositions
     assert stage1.state_digest(got) == stage1.state_digest(ref)
     assert m["num_rendered"] == rm["num_rendered"]
-    assert m["precompute_gaussians"] == rm["precompute_gaussians"] == 0   # the CPU's composition
     assert all(torch.equal(m[k], rm[k]) for k in ("l1", "ssim", "mask", "orient", "total"))
 
 
@@ -331,7 +333,7 @@ def test_loop_with_densify(runs):
     scene = runs.loop_scene
     model_cfg, opt_cfg, pipe_cfg = _loop_configs(False, 8, **dict(
         DENSIFY, densify_until_iter=7))
-    launches = dict(cuda_core.launches)
+    launches = dict(kernels.launches)
     state = stage1.train(model_cfg, opt_cfg, pipe_cfg, scene, test_iterations=(),
                          save_iterations=(), checkpoint_iterations=(), camera_batch=2,
                          device="cpu")
@@ -339,7 +341,7 @@ def test_loop_with_densify(runs):
     assert bool(torch.isfinite(state.model.params.xyz).all())
     assert state.model.num_alive() > N_PTS
     assert int(state.cam_opt.count.sum()) == 16
-    assert cuda_core.launches == launches         # the CPU runs the plain versions
+    assert kernels.launches == launches         # the CPU runs the plain versions
 
 
 def _refusal(case):

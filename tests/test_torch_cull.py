@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from gaussianhaircut_torch import kernels
 from gaussianhaircut_torch.ops.rasterize import common as C
 from gaussianhaircut_torch.ops.rasterize import cuda_core, plain_core
 
@@ -191,10 +192,10 @@ def test_cull_edge_values():
     # the tiny box around (10, 10) meets only the warp holding that pixel
     assert m[2] == 1 << int(plain_core.warp_of_pixel(cfg)[10 * 32 + 10])
     # the CPU route of the card's mask wrapper is the plain mirror
-    before = dict(cuda_core.launches)
+    before = dict(kernels.launches)
     np.testing.assert_array_equal(cuda_core.warp_masks(payload, cs, nc, 32, 32, cfg),
                                   plain_core.warp_masks_plain(payload, cs, nc, 32, cfg))
-    assert cuda_core.launches == before
+    assert kernels.launches == before
 
 
 def test_warp_footprints():

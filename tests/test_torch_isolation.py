@@ -71,8 +71,8 @@ _SCRIPT = textwrap.dedent("""
     for mod in pkgutil.walk_packages(gaussianhaircut_torch.__path__,
                                      "gaussianhaircut_torch."):
         importlib.import_module(mod.name)
+    from gaussianhaircut_torch import kernels
     from gaussianhaircut_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.scene.cameras import CameraStatic
     from gaussianhaircut_torch.train import stage1
 
@@ -229,7 +229,7 @@ _SCRIPT = textwrap.dedent("""
                "--texture_size", "32", "--use_sds_stage3", "--prior_steps", "1",
                "--device", "cpu", "--out", os.path.join(root, "q2.json"))
     assert all(os.path.exists(os.path.join(root, q)) for q in ("q1.json", "q2.json"))
-    assert all(n == 0 for n in cuda_core.launches.values()), cuda_core.launches
+    assert all(n == 0 for n in kernels.launches.values()), kernels.launches
 
     # with no device and no CUDA, train() raises instead of using the CPU
     torch.cuda.is_available = lambda: False
@@ -256,7 +256,7 @@ _TOOLS_PREAMBLE = textwrap.dedent("""
                  "torchvision", "lpips"):
         sys.modules[name] = None          # any import of them now fails
     import numpy as np
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch import kernels
 
     def run_tool(name, *argv):
         sys.argv = [name, *argv]
@@ -267,7 +267,7 @@ _TOOLS_PREAMBLE = textwrap.dedent("""
             assert e.code in (0, None), (name, e.code)
 """)
 _TOOLS_EPILOGUE = textwrap.dedent("""
-    assert all(n == 0 for n in cuda_core.launches.values()), cuda_core.launches
+    assert all(n == 0 for n in kernels.launches.values()), kernels.launches
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("gaussianhaircut_tpu", "jax", "flax", "PIL", "cv2",
                                            "torchvision", "lpips", "optax")
@@ -366,30 +366,31 @@ def test_cuda_backend_refuses_cpu_tensors():
     """The route follows the tensors' device and nothing else: the kernel
     route refuses CPU tensors, and rasterize() on CPU tensors runs the plain
     versions without counting a launch."""
+    from gaussianhaircut_torch import kernels
     from gaussianhaircut_torch.ops.rasterize import cuda_core
     from gaussianhaircut_torch.ops.rasterize.api import rasterize
     from gaussianhaircut_torch.ops.rasterize.common import RasterConfig
     cfg = RasterConfig()
-    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+    with pytest.raises(ValueError, match="payload is .* on cpu; expected .* on a CUDA device"):
         cuda_core._check_layout(torch.zeros(1, 24, cfg.chunk),
                                 torch.zeros(1, dtype=torch.int32),
                                 torch.ones(1, dtype=torch.int32), cfg)
     assert not hasattr(cfg, "backend")
     p = 4
-    before = dict(cuda_core.launches)
+    before = dict(kernels.launches)
     out = rasterize(torch.zeros(p, 3), torch.ones(p, 3), torch.zeros(p, 10),
                     torch.ones(p, 1), torch.ones(p), torch.ones(p, dtype=torch.bool),
                     torch.zeros(10), 32, 32, cfg)
     assert out["render"].shape == (10, 32, 32)
-    assert cuda_core.launches == before
+    assert kernels.launches == before
 
 
 def test_kernel_checks_reject_cpu_tensors():
     """The kernel-side checks refuse anything but contiguous float32 CUDA
     tensors of the expected shape."""
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
-    with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        cuda_core._check("payload", torch.zeros(1, 24, 256), torch.float32)
+    from gaussianhaircut_torch import kernels
+    with pytest.raises(ValueError, match="payload is .* on cpu; expected .* on a CUDA device"):
+        kernels.check_arg("payload", torch.zeros(1, 24, 256), torch.float32)
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):

@@ -460,7 +460,7 @@ def _start_kernel_builds(root):
     once, with an nvcc stand-in that logs its output path and waits until
     all the compiles (two of each source) have started -> (processes, log,
     build directory)."""
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch import kernels
     os.makedirs(root)
     fake, log, build = root / "nvcc", root / "calls", root / "build"
     fake.write_text(textwrap.dedent(f"""\
@@ -470,7 +470,7 @@ def _start_kernel_builds(root):
         with open({str(log)!r}, "a") as f:
             f.write(out + "\\n")
         t0 = time.time()
-        while (len(open({str(log)!r}).read().split()) < {2 * len(cuda_core.SOURCES)}
+        while (len(open({str(log)!r}).read().split()) < {2 * len(kernels.SOURCES)}
                and time.time() - t0 < 60):
             time.sleep(0.05)
         with open(out, "w") as f:
@@ -478,11 +478,11 @@ def _start_kernel_builds(root):
         """))
     fake.chmod(0o755)
     script = textwrap.dedent(f"""
-        from gaussianhaircut_torch.ops.rasterize import cuda_core
-        cuda_core.BUILD_DIR = {str(build)!r}
-        cuda_core._nvcc = lambda: {str(fake)!r}
-        cuda_core._load = lambda name: None
-        cuda_core.build()
+        from gaussianhaircut_torch import kernels
+        kernels.BUILD_DIR = {str(build)!r}
+        kernels._nvcc = lambda: {str(fake)!r}
+        kernels._load = lambda name: None
+        kernels.build()
         """)
     env = dict(os.environ, PYTHONPATH=REPO)
     return ([subprocess.Popen([sys.executable, "-c", script], env=env, cwd=REPO)
@@ -492,14 +492,14 @@ def _start_kernel_builds(root):
 def test_kernels_build_from_several_processes(runs):
     """Two processes building into one empty directory at once: every nvcc
     run writes a temporary file of its own, and each library lands whole."""
-    from gaussianhaircut_torch.ops.rasterize import cuda_core
+    from gaussianhaircut_torch import kernels
     rcs, log, build = runs.build
     assert rcs == [0, 0]
     calls = log.read_text().split()
-    sources = len(cuda_core.SOURCES)
+    sources = len(kernels.SOURCES)
     assert len(calls) == 2 * sources and len(set(calls)) == 2 * sources, calls
     names = sorted(os.listdir(build))
     assert len(names) == sources and not any(n.endswith(".tmp") for n in names), names
-    for name, src in cuda_core.SOURCES.items():
-        lib = os.path.basename(cuda_core._lib_path(name))
+    for name, src in kernels.SOURCES.items():
+        lib = os.path.basename(kernels._lib_path(name))
         assert (build / lib).read_text() == "lib " + src

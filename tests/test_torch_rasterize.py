@@ -272,6 +272,7 @@ def test_plain_probe_matches_tpu_probe_statement(jax_binned, tcfg):
     the lanes; a tile without chunks stays 0.  The CPU wrapper routes to the
     plain version and counts no launch; the grid-only variant has no plain
     version.  Tolerance: float64 plain sums rounded once to float32."""
+    from gaussianhaircut_torch import kernels
     from gaussianhaircut_torch.ops.rasterize import cuda_core
     payload, cs, nc = _torch_layout(jax_binned)
     tof = np.asarray(jax_binned.tile_of_chunk)
@@ -288,10 +289,10 @@ def test_plain_probe_matches_tpu_probe_statement(jax_binned, tcfg):
         got = plain_core.raster_probe_plain(payload, cs, n_chunks, tcfg)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
     assert (want[1] == 0).all() and (got.numpy()[nc.numpy() > 0] != 0).any()
-    before = dict(cuda_core.launches)
+    before = dict(kernels.launches)
     routed = cuda_core.raster_probe(payload, cs, nc, W, H, tcfg)
     np.testing.assert_array_equal(
         routed.numpy(), plain_core.raster_probe_plain(payload, cs, nc, tcfg).numpy())
-    assert cuda_core.launches == before
+    assert kernels.launches == before
     with pytest.raises(ValueError, match="CUDA tensors only"):
         cuda_core.raster_probe(payload, cs, nc, W, H, tcfg, grid_only=True)
