@@ -190,7 +190,22 @@ four views, BARF camera residuals trainable, 32x32 tiles, chunk 256):
                    bound.  The kernels line gives the tail's launches counted
                    in the strands phase's stage-2 run (``launches_strands``,
                    one of each kernel per step) and the timing loop's own
-                   count apart (``launches_per_timed_call``);
+                   count apart (``launches_per_timed_call``).  Then stage
+                   1's pass (``optim_tail.adam_guarded`` through
+                   ``stage1.apply_grads``) against its plain version (the
+                   composition, on the card) at the s1 cell's layout (1M
+                   Gaussians, SH 3, 128 camera rows, the features'
+                   gradients as autograd's slices of one tensor) for three
+                   steps: a step, a NaN in one Gaussian leaf (parameters,
+                   moments and count kept), the cameras off
+                   (step >= iterations_cam); parameters, moments, counts and
+                   camera rows bit for bit, one launch of each kernel a
+                   step; the row form's bias corrections at every count
+                   from 1 to stage 1's iterations against torch.pow's
+                   (``every_count``); then timed as stage 2's (``stage1``: the kernels'
+                   launches alone, the wrapper, the plain version, and the
+                   bytes bound).  The train phase requires one launch of
+                   each of stage 1's kernels per step;
 19. precompute  -- the fused precompute (``ops/precompute.py``,
                    ``csrc/precompute.cu``) against the composition it
                    replaces (``render/renderer.py: precompute_plain``, on the
@@ -265,6 +280,11 @@ OPTIM_TAIL_RTOL = 1e-6
 OPTIM_TAIL_NAN_LEAF = 100
 OPTIM_TAIL_GRAD_SCALES = {"clip_loose": 1e-5, "clip_binding": 1e-3, "nan_leaf": 1e-5}
 TAIL_ENTRIES = ("optim_tail_reduce", "optim_tail_finalize", "optim_tail_update")
+# stage 1's pass: the s1 cell's layout (its Gaussians, SH degree and views),
+# its kernels, and its three steps: (name, step, the leaf given a NaN)
+S1_ADAM_GAUSSIANS, S1_ADAM_CAMS = 1_000_000, 128
+ADAM_ENTRIES = ("optim_tail_adam_guard", "optim_tail_adam_update")
+S1_ADAM_STEPS = (("step", 41, None), ("nan_leaf", 42, "rotation"), ("cameras_off", 15_000, None))
 # the precompute phase: the two cells' layouts (Gaussians, head rows, SH
 # rows stored), and the kernels' results against the composition's in
 # float64: a tensor's error norm (over the rows no branch decides) at most
@@ -526,7 +546,8 @@ def main() -> int:
         "optim_tail": {"name": "optim_tail", "route": "cuda",
                        "source": "gaussianhaircut_torch/csrc/optim_tail.cu",
                        "replaces": None, "added_for": "stage 2's per-leaf optimizer tail "
-                       "(train/stage2.py: train_step), ~30 launches per leaf",
+                       "(train/stage2.py: train_step), ~30 launches per leaf; stage 1's "
+                       "update (train/stage1.py: apply_grads), ~300 launches per step",
                        "library_ms": None},
         "precompute": {"name": "precompute", "route": "cuda",
                        "source": "gaussianhaircut_torch/csrc/precompute.cu",
@@ -864,9 +885,177 @@ def optim_tail_phase(torch, dev, kernels):
         plain_ms=timing["plain"]["ms"],
         bound_ms=b_ms, bound_by=b_by,
         max_abs_err=max(st["max_abs_err"] for st in steps.values()))
+    del state, twin, grads, params
+    s1 = stage1_adam_check(torch, dev)
+    kernels["optim_tail"]["stage1"] = {k: s1[k] for k in ("ms", "bound_ms", "bound_share")}
     return {"phase": "optim_tail", "leaves": len(shapes), "ema_leaves": len(ema_names),
             "parameters": n_all, "ema_parameters": n_ema, "steps": steps, "timing": timing,
-            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "stage1": s1}
+
+
+def stage1_adam_check(torch, dev):
+    """Stage 1's pass against its plain version on the card at the s1
+    cell's layout, three steps, then timed (see the module docstring, item
+    18)."""
+    import dataclasses
+
+    from gaussianhaircut_torch import kernels as loader
+    from gaussianhaircut_torch.config import OptimizationConfig
+    from gaussianhaircut_torch.models import gaussian_model as gm
+    from gaussianhaircut_torch.scene.cameras import CameraResiduals
+    from gaussianhaircut_torch.tools.profile_fixed import cuda_ms
+    from gaussianhaircut_torch.train import optim, optim_tail, stage1
+
+    n, c, rest = S1_ADAM_GAUSSIANS, S1_ADAM_CAMS, (PRE_SH_DEGREE + 1) ** 2 - 1
+    shapes = {"xyz": (n, 3), "features_dc": (n, 1, 3), "features_rest": (n, rest, 3),
+              "scaling": (n, 3), "rotation": (n, 4), "opacity": (n, 1), "label": (n, 1),
+              "orient_conf": (n, 1), "viewspace": (n, 3)}
+    cam_shapes = {"rotation": (c, 3), "translation": (c, 3), "fov": (c, 2)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda shape, s: s * torch.randn(shape, generator=gen, device=dev)
+    rec = lambda cls, sh, s: cls(**{k: rand(x, s) for k, x in sh.items()})
+    zeros = torch.zeros(n, device=dev)
+    aux = gm.GaussianAux(torch.ones(n, dtype=torch.bool, device=dev), zeros, zeros, zeros)
+    opt_cfg = OptimizationConfig()
+    state = stage1.TrainState(
+        gm.GaussianModelState(rec(gm.GaussianParams, shapes, 0.1), aux, 3, 3, 2.5),
+        optim.AdamState(rec(gm.GaussianParams, shapes, 1e-4),
+                        rec(gm.GaussianParams, shapes, 1e-4).map(torch.square),
+                        torch.tensor(41, dtype=torch.int32, device=dev)),
+        rec(CameraResiduals, cam_shapes, 1e-3),
+        stage1.CamAdamState(rec(CameraResiduals, cam_shapes, 1e-4),
+                            rec(CameraResiduals, cam_shapes, 1e-4).map(torch.square),
+                            torch.randint(0, 40, (c,), dtype=torch.int32, generator=gen,
+                                          device=dev)), 41)
+
+    def plain(st, gparams, gcam, drawn):
+        """``apply_grads``' update through the plain version."""
+        rows = optim_tail.Rows(st.cam_res, gcam, st.cam_opt.mu, st.cam_opt.nu, st.cam_opt.count,
+                               drawn, stage1.cam_lrs(opt_cfg, 2.5, st.step),
+                               st.step < opt_cfg.iterations_cam)
+        p, o, ok, (cam_res, cam_opt) = optim_tail.adam_guarded_plain(
+            st.model.params, gparams, st.opt, stage1.param_lrs(opt_cfg, 2.5, st.step), rows)
+        return stage1.TrainState(st.model.replace(params=p), o, cam_res, stage1.CamAdamState(
+            cam_opt.mu, cam_opt.nu, cam_opt.count), st.step + 1), ok
+
+    def tensors(st):
+        out = {f"p/{k}": getattr(st.model.params, k) for k in shapes}
+        out.update({f"m/{k}": getattr(st.opt.mu, k) for k in shapes})
+        out.update({f"v/{k}": getattr(st.opt.nu, k) for k in shapes})
+        out.update({f"cam/{k}": getattr(st.cam_res, k) for k in cam_shapes})
+        out.update({f"cam_m/{k}": getattr(st.cam_opt.mu, k) for k in cam_shapes})
+        out.update({f"cam_v/{k}": getattr(st.cam_opt.nu, k) for k in cam_shapes})
+        out.update({"count": st.opt.count, "cam_count": st.cam_opt.count})
+        return out
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def step_inputs(step, nan):
+        gparams = rec(gm.GaussianParams, shapes, 1e-3)
+        # the features' gradients as autograd gives them: slices of one tensor
+        whole = rand((n, 1 + rest, 3), 1e-3)
+        gparams = gparams.replace(features_dc=whole[:, :1], features_rest=whole[:, 1:])
+        if nan:
+            getattr(gparams, nan).view(-1)[7] = float("nan")
+        drawn = torch.zeros(c, device=dev)
+        drawn[step % c] = 1.0
+        return gparams, rec(CameraResiduals, cam_shapes, 1e-2), drawn
+
+    kw = dict(opt_cfg=opt_cfg, trainable_cameras=True, trainable_intrinsics=True)
+    twin, steps = state, {}
+    for name, step, nan in S1_ADAM_STEPS:
+        gparams, gcam, drawn = step_inputs(step, nan)
+        state, twin = (dataclasses.replace(st, step=step) for st in (state, twin))
+        before = {k: t.clone() for k, t in tensors(state).items()}
+        loader.reset_launch_counts()
+        state, ok = stage1.apply_grads(state, gparams, gcam, aux, drawn, **kw)
+        twin, ok_plain = plain(twin, gparams, gcam, drawn)
+        torch.cuda.synchronize()
+        require(all(loader.launches[k] == 1 for k in ADAM_ENTRIES),
+                f"optim_tail stage1 {name}: one call launched "
+                f"{ {k: loader.launches[k] for k in ADAM_ENTRIES} }")
+        a, b = tensors(state), tensors(twin)
+        differ = [k for k in b if not torch.equal(bits(a[k]), bits(b[k]))]
+        moved = sorted(k for k in a if not torch.equal(bits(a[k]), bits(before[k])))
+        steps[name] = {"ok": bool(ok), "ok_plain": bool(ok_plain), "tensors": len(b),
+                       "differ": differ, "moved": len(moved),
+                       "count": int(state.opt.count),
+                       "camera_rows_moved": int((state.cam_opt.count
+                                                 != before["cam_count"]).sum())}
+        require(not differ and bool(ok) == bool(ok_plain),
+                f"optim_tail stage1 {name}: {differ} differ from the plain version "
+                f"(ok {bool(ok)} / {bool(ok_plain)})")
+        gauss = [k for k in a if not k.startswith("cam")]
+        if name == "nan_leaf":
+            require(not bool(ok) and not set(moved) & set(gauss),
+                    f"optim_tail stage1 nan_leaf: moved {moved}")
+        else:
+            require(bool(ok) and set(moved) >= set(gauss) - {"p/viewspace"},
+                    f"optim_tail stage1 {name}: moved only {moved}")
+        cams_on = step < opt_cfg.iterations_cam
+        require(steps[name]["camera_rows_moved"] == int(cams_on),
+                f"optim_tail stage1 {name}: {steps[name]['camera_rows_moved']} camera rows "
+                f"stepped")
+        del before
+
+    gparams, gcam, drawn = step_inputs(43, None)
+    state = dataclasses.replace(state, step=43)
+    args = lambda: (state, gparams, gcam, aux, drawn)
+    rows = optim_tail.Rows(state.cam_res, gcam, state.cam_opt.mu, state.cam_opt.nu,
+                           state.cam_opt.count, drawn, stage1.cam_lrs(opt_cfg, 2.5, 43), True)
+    lrs = stage1.param_lrs(opt_cfg, 2.5, 43)
+    # the bias corrections at every count that stage 1 reaches, the row form
+    # against torch.pow's (both forms take them from one powf): one row leaf
+    # per residual whose row r has count r, every row drawn, 32 random
+    # elements a row, so that a c1 or c2 an ulp off moves some row
+    k = opt_cfg.iterations
+    count = torch.arange(k, dtype=torch.int32, device=dev)
+    wide = lambda s: CameraResiduals(**{name: rand((k, 32), s) for name in cam_shapes})
+    every = optim_tail.Rows(wide(1.0), wide(1e-2), wide(1e-3), wide(1e-3).map(torch.square),
+                            count, torch.ones(k, device=dev),
+                            CameraResiduals(rotation=1e-3, translation=1e-2, fov=1e-4), True)
+    *_, (got_p, got) = optim_tail.adam_guarded(state.model.params, gparams, state.opt, lrs, every)
+    want_p, want = optim.adam_rows_update(every.params, every.grads,
+                                          optim.AdamState(every.mu, every.nu, count),
+                                          every.drawn, every.lrs, True)
+    differ = [f"{w}/{name}" for w, a, b in (("p", got_p, want_p), ("m", got.mu, want.mu),
+                                            ("v", got.nu, want.nu))
+              for name in cam_shapes if not torch.equal(bits(getattr(a, name)),
+                                                        bits(getattr(b, name)))]
+    require(not differ and torch.equal(got.count, count + 1),
+            f"optim_tail stage1: at counts 1-{k} {differ} differ from torch.pow's")
+    every_count = {"counts": k, "elements_per_row": 32, "differ": differ}
+    del every, got_p, got, want_p, want
+    # the launches alone, on a table built once: the kernels' device time
+    table, _, grid = optim_tail.adam_table(state.model.params, gparams, state.opt, lrs, rows)
+    fns = {"kernel": lambda: optim_tail.launch_adam(table, grid, state.opt.count, rows),
+           "wrapper": lambda: stage1.apply_grads(*args(), **kw),
+           "plain": lambda: plain(state, gparams, gcam, drawn)}
+    timing = {}
+    for path, fn in fns.items():
+        ms = cuda_ms(fn, REPS)
+        torch.cuda.synchronize()
+        loader.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        host_ms = (time.perf_counter() - t0) / REPS * 1e3
+        torch.cuda.synchronize()
+        timing[path] = {"ms": ms, "host_ms_per_call": host_ms,
+                        "launches_per_call": {k: v / REPS for k, v in loader.launches.items()
+                                              if v}}
+    n_all = sum(t.numel() for t in state.model.params.values())
+    n_guarded = n_all - state.model.params.viewspace.numel()
+    n_rows = sum(t.numel() for t in state.cam_res.values())
+    # adam_guard reads the guarded g; adam_update reads g, p, m, v and writes
+    # p', m', v' (the rows' leaves too, with their counts and drawn: a few KB)
+    nbytes = 4 * (n_guarded + n_rows + 7 * (n_all + n_rows))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    ms = timing["kernel"]["ms"]
+    return {"gaussians": n, "camera_rows": c, "parameters": n_all, "guarded": n_guarded,
+            "steps": steps, "timing": timing, "bytes": nbytes, "ms": ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_share": b_ms / ms, "every_count": every_count}
 
 
 def precompute_layout(torch, n, n_head, dev, seed):
@@ -1195,6 +1384,11 @@ def train_phase(torch, scene, cfg, dev, kernels):
     require(all(v == iters for v in pre.values()),
             f"train: the precompute's kernels launched {pre} times in {iters} steps")
     kernels["precompute"]["launches"] = pre
+    # stage 1's optimizer: one launch of each of its kernels per step
+    adam = {k: launches[k] for k in ADAM_ENTRIES}
+    require(all(v == iters for v in adam.values()),
+            f"train: stage 1's optimizer launched {adam} times in {iters} steps")
+    kernels["optim_tail"]["launches_stage1"] = adam
     densified = [it for it in range(2 * window, iters + 1, window)]
     require(any(alive[it] != alive[it - 1] for it in densified),
             f"train: num_alive never changed at densify ({alive})")

@@ -64,6 +64,9 @@ ENTRY_POINTS = {
     "optim_tail_reduce": Entry("optim_tail", (_P, _I, _P, _P)),
     "optim_tail_finalize": Entry("optim_tail", (_P, _P, _I, _P, _P) + (_F,) * 3),
     "optim_tail_update": Entry("optim_tail", (_P, _I, _P) + (_F,) * 9),
+    "optim_tail_adam_guard": Entry("optim_tail", (_P, _I, _P)),
+    "optim_tail_adam_update": Entry("optim_tail", (_P, _I, _P, _I) + (_P,) * 6 + (_I, _I)
+                                    + (_F,) * 5),
     "precompute_layout": Entry("precompute", (_P,), launcher=False),
     "precompute_fwd": Entry("precompute", (_P,) * 13 + (_I,) * 5 + (_F,)),
     "precompute_bwd": Entry("precompute", (_P,) * 17 + (_I,) * 5 + (_F,)),

@@ -1,8 +1,11 @@
 """Adam with torch.optim.Adam(eps=1e-15) semantics as a functional update on
-``TensorRecord`` pytrees, AdamW and the global-norm helpers of the strand
-stages, plus the exponential LR schedule (port of
-``gaussianhaircut_tpu/train/optim.py``).  The AdamW and norm helpers take
-either a ``TensorRecord`` or a dict of tensors keyed by parameter name.
+``TensorRecord`` pytrees, Adam on rows with a count each (the camera
+residuals), AdamW and the global-norm helpers of the strand stages, plus the
+exponential LR schedule (port of ``gaussianhaircut_tpu/train/optim.py``).
+On the card, stages 1 and 2 run these as fused passes
+(``train/optim_tail.py``); the compositions here are their CPU twins.  The
+AdamW and norm helpers take either a ``TensorRecord`` or a dict of tensors
+keyed by parameter name.
 
 The moments are plain records because densification zeroes moment rows of
 cloned/split slots (the optimizer-state surgery of gaussian_model.py:
@@ -15,6 +18,10 @@ import dataclasses
 import math
 
 import torch
+
+# Adam's betas and the reference's eps (torch.optim.Adam(eps=1e-15)), the
+# constants of stage 1's optimizers
+B1, B2, EPS = 0.9, 0.999, 1e-15
 
 
 @dataclasses.dataclass
@@ -32,8 +39,8 @@ def adam_init(params) -> AdamState:
                      count=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def adam_update(grads, state: AdamState, lrs, b1: float = 0.9,
-                b2: float = 0.999, eps: float = 1e-15):
+def adam_update(grads, state: AdamState, lrs, b1: float = B1,
+                b2: float = B2, eps: float = EPS):
     """Returns (updates, new_state).  ``lrs`` is a record (or dict) of
     Python floats matching ``grads``; an lr of 0 freezes that leaf.  Update:
     -lr * m_hat / (sqrt(v_hat) + eps)."""
@@ -46,6 +53,30 @@ def adam_update(grads, state: AdamState, lrs, b1: float = 0.9,
     updates = _map(lambda lr, m, v: -lr * (m / c1) / (torch.sqrt(v / c2) + eps),
                    lrs, mu, nu)
     return updates, AdamState(mu, nu, count)
+
+
+def adam_rows_update(params, grads, state: AdamState, drawn: torch.Tensor, lrs, on: bool):
+    """Adam on the rows of [N, k] leaves whose rows each keep their own
+    count (``state.count``, [N] int32): only the rows where ``drawn`` ([N])
+    is above 0 step, and none unless ``on`` holds and every gradient is
+    finite; every other row keeps its moments and count.  The camera
+    residuals' update: one row for the single-camera step, the union of the
+    data ranks' rows for the mesh step (the JAX package's dense-row update,
+    data_parallel.py:107-138).  Returns (new params, new_state)."""
+    do = grads_are_finite(grads) & on
+    sel = (drawn * do.to(torch.float32))[:, None] > 0
+    count = state.count + sel[:, 0].to(torch.int32)
+    cnt = torch.clamp(count, min=1).to(torch.float32)[:, None]
+    c1 = 1 - torch.pow(B1, cnt)
+    c2 = 1 - torch.pow(B2, cnt)
+    mu = _map(lambda m, g: torch.where(sel, B1 * m + (1 - B1) * g, m), state.mu, grads)
+    nu = _map(lambda v, g: torch.where(sel, B2 * v + (1 - B2) * g ** 2, v), state.nu, grads)
+
+    def step(p, lr, m, v):
+        step_row = -lr * (m / c1) / (torch.sqrt(v / c2) + EPS)
+        return p + torch.where(sel, step_row, torch.zeros_like(step_row))
+
+    return _map(step, params, lrs, mu, nu), AdamState(mu, nu, count)
 
 
 def _map(fn, tree, *others):

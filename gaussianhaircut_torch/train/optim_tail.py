@@ -1,5 +1,7 @@
-"""Stage 2's optimizer tail in one pass: the NaN guard, the global-norm clip,
-AdamW and the EMA of the denoiser over every parameter leaf.
+"""The optimizers of stages 1 and 2, each as one pass over a table of leaves.
+
+Stage 2's tail, ``adamw_tail_``: the NaN guard, the global-norm clip, AdamW
+and the EMA of the denoiser over every parameter leaf.
 
 On the card, ``adamw_tail_`` launches ``csrc/optim_tail.cu`` three times
 (reduce, finalize, update) over one table of up to ``MAX_LEAVES`` leaves,
@@ -15,13 +17,30 @@ Both update in place: the parameters, the EMA and the optimizer state's
 ``mu``, ``nu`` and ``count`` tensors.  A step with a non-finite gradient
 keeps the parameters, the moments and the count, and still moves the EMA.
 
+Stage 1's Adam, ``adam_guarded``: the NaN guard over the gradients of every
+leaf but ``UNGUARDED``, Adam (``optim.B1``, ``B2``, ``EPS``) with a learning
+rate per leaf, and Adam on
+``Rows``, leaves of N rows (the camera residuals) whose rows each keep their
+own count and step only where drawn.  On the card it launches
+``csrc/optim_tail.cu``'s ``adam_guard`` and ``adam_update`` once each over
+one table of up to ``ADAM_MAX_LEAVES`` leaves, reading the features'
+gradients where autograd left them (rows of a stride); on the CPU it runs
+``adam_guarded_plain``, the composition of ``optim.grads_are_finite``,
+``optim.adam_update``, the guard's ``torch.where``, ``optim.where_ok`` and
+``optim.adam_rows_update``.  Both give the same floats.  It writes fresh
+tensors: the caller's state is left as it was.  A step with a non-finite
+guarded gradient keeps the parameters, the moments and the count; a skipped
+rows' step keeps every row.
+
 Each launch adds one to ``kernels.launches`` under its C entry point
-(``optim_tail_reduce``, ``optim_tail_finalize``, ``optim_tail_update``).
+(``optim_tail_reduce``, ``optim_tail_finalize``, ``optim_tail_update``;
+``optim_tail_adam_guard``, ``optim_tail_adam_update``).
 """
 from __future__ import annotations
 
 import bisect
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,11 +49,12 @@ from gaussianhaircut_torch.train import optim
 
 # csrc/optim_tail.cu's constants, checked against the library at first use:
 # elements per chunk (a multiple of 4), threads per block, resident blocks
-# per SM (the kernels' launch bounds), leaves per table
+# per SM (the kernels' launch bounds), leaves per table (stage 2's, stage 1's)
 CHUNK = 4096
 THREADS = 256
 BLOCKS_PER_SM = 4
 MAX_LEAVES = 400
+ADAM_MAX_LEAVES = 16
 
 
 class _Table(ctypes.Structure):
@@ -45,18 +65,33 @@ class _Table(ctypes.Structure):
                 *((name, ctypes.c_void_p * MAX_LEAVES) for name in "gpmve")]
 
 
+class _AdamTable(ctypes.Structure):
+    """csrc/optim_tail.cu's ``AdamTable``, passed by value to the kernels."""
+    _fields_ = [("num_leaves", ctypes.c_int), ("num_chunks", ctypes.c_int),
+                ("chunk_start", ctypes.c_int * (ADAM_MAX_LEAVES + 1)),
+                ("numel", ctypes.c_longlong * ADAM_MAX_LEAVES),
+                ("g_stride", ctypes.c_longlong * ADAM_MAX_LEAVES),
+                ("g_width", ctypes.c_int * ADAM_MAX_LEAVES),
+                ("row_width", ctypes.c_int * ADAM_MAX_LEAVES),
+                ("guarded", ctypes.c_int * ADAM_MAX_LEAVES),
+                ("neg_lr", ctypes.c_float * ADAM_MAX_LEAVES),
+                *((name, ctypes.c_void_p * ADAM_MAX_LEAVES)
+                  for name in ("g", "p", "m", "v", "p_out", "m_out", "v_out"))]
+
+
 LAYOUT = {"chunk": CHUNK, "threads": THREADS, "blocks per SM": BLOCKS_PER_SM,
-          "leaves": MAX_LEAVES, "table bytes": ctypes.sizeof(_Table)}
+          "leaves": MAX_LEAVES, "table bytes": ctypes.sizeof(_Table),
+          "adam leaves": ADAM_MAX_LEAVES, "adam table bytes": ctypes.sizeof(_AdamTable)}
 
 
-def chunk_plan(sizes) -> list[int]:
+def chunk_plan(sizes, max_leaves: int = MAX_LEAVES) -> list[int]:
     """The chunk table of leaves of element counts ``sizes`` ->
     chunk_start: leaf i owns the chunks [chunk_start[i], chunk_start[i + 1])
     of ``CHUNK`` elements each, its last one short.  One table spans every
-    leaf, so each kernel launches once; more than ``MAX_LEAVES`` leaves
+    leaf, so each kernel launches once; more than ``max_leaves`` leaves
     raise."""
-    if len(sizes) > MAX_LEAVES:
-        raise ValueError(f"optim_tail: {len(sizes)} leaves, the table holds {MAX_LEAVES}")
+    if len(sizes) > max_leaves:
+        raise ValueError(f"optim_tail: {len(sizes)} leaves, the table holds {max_leaves}")
     starts = [0]
     for n in sizes:
         starts.append(starts[-1] + -(-n // CHUNK))
@@ -175,3 +210,159 @@ def launch_tail(table: _Table, grid: int, count: torch.Tensor, lr: float, clip: 
                    -lr, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, decay, 1.0 - decay,
                    stream)
     return scalars[4]
+
+
+# the leaf of stage 1's parameters that the guard leaves out: the viewspace
+# port, whose gradient feeds the densify statistics (its lr is 0)
+UNGUARDED = "viewspace"
+
+
+class Rows(NamedTuple):
+    """Leaves of N rows for ``adam_guarded`` (the camera residuals), each
+    row with its own step count: a row steps where ``drawn`` is above 0, and
+    only while ``on`` holds and every gradient of ``grads`` is finite."""
+    params: object          # a TensorRecord of [N, ...] leaves
+    grads: object
+    mu: object
+    nu: object
+    count: torch.Tensor     # [N] int32
+    drawn: torch.Tensor     # [N] float32
+    lrs: object             # Python floats by leaf
+    on: bool
+
+
+@torch.no_grad()
+def adam_guarded(params, grads, opt_state: optim.AdamState, lrs, rows: Rows | None = None):
+    """One guarded Adam step of ``params`` (a TensorRecord; ``grads``, the
+    moments and ``lrs``, Python floats, alike) and of ``rows``: the guard
+    holds where every gradient but ``UNGUARDED``'s is finite.  CUDA
+    parameters launch the kernels (``adam_table`` then refuses a tensor
+    elsewhere), CPU parameters run ``adam_guarded_plain``.  Returns (new
+    params, new ``AdamState``, ok, (new row params, new rows' ``AdamState``)
+    or None), all fresh tensors; ok is a device bool."""
+    if not params.values()[0].is_cuda:
+        return adam_guarded_plain(params, grads, opt_state, lrs, rows)
+    table, outs, grid = adam_table(params, grads, opt_state, lrs, rows)
+    new_count, ok, new_row_count = launch_adam(table, grid, opt_state.count, rows)
+
+    def rebuild(out, p, m, v, c):
+        return (type(p)(**{n: o[0] for n, o in out.items()}),
+                optim.AdamState(type(m)(**{n: o[1] for n, o in out.items()}),
+                                type(v)(**{n: o[2] for n, o in out.items()}), c))
+
+    new_params, new_opt = rebuild(outs[0], params, opt_state.mu, opt_state.nu, new_count)
+    new_rows = (None if rows is None
+                else rebuild(outs[1], rows.params, rows.mu, rows.nu, new_row_count))
+    return new_params, new_opt, ok, new_rows
+
+
+@torch.no_grad()
+def adam_guarded_plain(params, grads, opt_state: optim.AdamState, lrs, rows: Rows | None = None):
+    """``adam_guarded``'s plain version, on any device: the composition of
+    ``optim``'s helpers, with the guard's ``torch.where`` (not a
+    multiplicative mask: 0 * NaN = NaN)."""
+    ok = optim.grads_are_finite(
+        grads.replace(**{UNGUARDED: torch.zeros_like(getattr(grads, UNGUARDED))}))
+    updates, new = optim.adam_update(grads, opt_state, lrs)
+    new_params = params.map(lambda p, u: p + torch.where(ok, u, torch.zeros_like(u)), updates)
+    new = optim.where_ok(ok, new, opt_state)
+    new_rows = None
+    if rows is not None:
+        new_rows = optim.adam_rows_update(
+            rows.params, rows.grads, optim.AdamState(rows.mu, rows.nu, rows.count), rows.drawn,
+            rows.lrs, rows.on)
+    return new_params, new, ok, new_rows
+
+
+def launch_adam(table: _AdamTable, grid: int, count: torch.Tensor, rows: Rows | None = None):
+    """The two kernels on ``adam_table``'s table (adam_guard, adam_update) on
+    the current stream, with ``optim``'s B1, B2 and EPS.  Returns (new
+    count, ok, the rows' new counts or None): fresh device tensors."""
+    kernels.check_layout("optim_tail", LAYOUT)
+    device = count.device
+    part_bad = torch.empty(2 * grid, dtype=torch.int32, device=device)
+    new_count = torch.empty_like(count)
+    ok = torch.empty((), dtype=torch.bool, device=device)
+    new_row_count, row_args = None, (None, None, None, 0, 0)
+    if rows is not None:
+        new_row_count = torch.empty_like(rows.count)
+        row_args = (rows.drawn.data_ptr(), rows.count.data_ptr(), new_row_count.data_ptr(),
+                    len(rows.count), int(bool(rows.on)))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    kernels.launch("optim_tail_adam_guard", ctypes.addressof(table), grid, part_bad.data_ptr(),
+                   stream)
+    kernels.launch("optim_tail_adam_update", ctypes.addressof(table), grid, part_bad.data_ptr(),
+                   grid, count.data_ptr(), new_count.data_ptr(), ok.data_ptr(), *row_args,
+                   optim.B1, 1 - optim.B1, optim.B2, 1 - optim.B2, optim.EPS, stream)
+    return new_count, ok, new_row_count
+
+
+def _grad_rows(what: str, g: torch.Tensor, shape, device) -> tuple[int, int]:
+    """(g_width, g_stride) of the table for gradient ``g``, checked: (0, 0)
+    where it is contiguous; else, where its rows are contiguous as
+    autograd's slices of a concatenation are ([N, 1, 3] and [N, 15, 3] of
+    one [N, 16, 3] for the features), the elements per row and the elements
+    between rows.  Any other layout is refused."""
+    kernels.check_arg(what, g, torch.float32, shape, device, contiguous=False)
+    if g.is_contiguous():
+        return 0, 0
+    # stride arithmetic, not views: a slice costs a dispatch per call
+    strides, width = g.stride(), 1
+    for size, stride in zip(reversed(shape[1:]), reversed(strides[1:])):
+        if size != 1 and stride != width:
+            raise ValueError(f"{what}: strides {strides} are neither contiguous nor rows of a "
+                             f"stride")
+        width *= size
+    return width, strides[0]
+
+
+def adam_table(params, grads, opt_state: optim.AdamState, lrs,
+               rows: Rows | None = None) -> tuple[_AdamTable, list, int]:
+    """The kernels' leaf table for one call, the fresh tensors it writes
+    ([{name: (p', m', v')}] of the leaves, then of the rows' leaves) and the
+    grid size.  Every tensor the kernels read is checked once (on the
+    parameters' device, float32, the leaf's shape, contiguous, a gradient
+    also as rows of a stride; the counts int32)."""
+    groups = [(params, grads, opt_state.mu, opt_state.nu, lrs, 0)]
+    device = params.values()[0].device
+    f32 = torch.float32
+    arg = kernels.check_arg
+    arg("adam: count", opt_state.count, torch.int32, kernels.ONE, device)
+    if rows is not None:
+        n_rows = len(rows.count)
+        arg("adam: the rows' count", rows.count, torch.int32, (n_rows,), device)
+        arg("adam: drawn", rows.drawn, f32, (n_rows,), device)
+        groups.append((rows.params, rows.grads, rows.mu, rows.nu, rows.lrs, n_rows))
+    t = _AdamTable()
+    sizes, outs, i = [], [], 0
+    for ps, gs, ms, vs, ls, n_rows in groups:
+        out = {}
+        for n in ps.names():
+            p = getattr(ps, n)
+            shape = p.shape
+            if n_rows and (len(shape) < 1 or shape[0] != n_rows):
+                raise ValueError(f"adam: row leaf {n!r} of shape {tuple(shape)} does not hold "
+                                 f"{n_rows} rows")
+            if i == ADAM_MAX_LEAVES:
+                raise ValueError(f"adam: more than {ADAM_MAX_LEAVES} leaves")
+            g = getattr(gs, n)
+            t.g_width[i], t.g_stride[i] = _grad_rows(f"adam: grads[{n!r}]", g, shape, device)
+            t.g[i] = g.data_ptr()
+            t.p[i] = arg(f"adam: params[{n!r}]", p, f32, shape, device).data_ptr()
+            t.m[i] = arg(f"adam: mu[{n!r}]", getattr(ms, n), f32, shape, device).data_ptr()
+            t.v[i] = arg(f"adam: nu[{n!r}]", getattr(vs, n), f32, shape, device).data_ptr()
+            o = out[n] = tuple(torch.empty(shape, dtype=f32, device=device) for _ in range(3))
+            t.p_out[i], t.m_out[i], t.v_out[i] = (x.data_ptr() for x in o)
+            t.neg_lr[i] = -getattr(ls, n)
+            t.guarded[i] = 1 if n_rows else int(n != UNGUARDED)
+            t.row_width[i] = p.numel() // n_rows if n_rows else 0
+            sizes.append(p.numel())
+            i += 1
+        outs.append(out)
+    starts = chunk_plan(sizes, ADAM_MAX_LEAVES)
+    t.num_leaves, t.num_chunks = len(sizes), starts[-1]
+    t.chunk_start[:len(starts)] = starts
+    t.numel[:len(sizes)] = sizes
+    grid_cap = (torch.cuda.get_device_properties(device).multi_processor_count * BLOCKS_PER_SM
+                if device.type == "cuda" else 1)
+    return t, outs, max(1, min(grid_cap, t.num_chunks))

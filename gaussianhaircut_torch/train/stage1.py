@@ -43,7 +43,7 @@ from gaussianhaircut_torch.render import network_gui
 from gaussianhaircut_torch.render.renderer import (
     default_background, fields_from_params, render, render_fields_batched)
 from gaussianhaircut_torch.scene.cameras import CameraBatch, CameraResiduals, camera_geom
-from gaussianhaircut_torch.train import densify, optim
+from gaussianhaircut_torch.train import densify, optim, optim_tail
 from gaussianhaircut_torch.utils.image import vis_orient
 from gaussianhaircut_torch.utils.logger import MetricsLogger
 
@@ -157,23 +157,27 @@ def apply_grads(state: TrainState, gparams: gm.GaussianParams,
                 opt_cfg: OptimizationConfig, trainable_cameras: bool,
                 trainable_intrinsics: bool):
     """The update of one step from its gradients: the NaN-guarded Adam on
-    the Gaussian parameters (train_gaussians.py:174-181; torch.where, not a
-    multiplicative mask, since 0 * NaN = NaN; a skipped step leaves moments
-    and count as they were), Adam on the camera rows ``drawn`` ([N] float,
-    1 where drawn) and the new densify statistics ``new_aux``.  Returns
-    (new_state, ok)."""
-    ok = optim.grads_are_finite(
-        gparams.replace(viewspace=torch.zeros_like(gparams.viewspace)))
-    lrs = param_lrs(opt_cfg, state.model.spatial_lr_scale, state.step)
-    updates, new_opt = optim.adam_update(gparams, state.opt, lrs)
-    with torch.no_grad():
-        new_params = state.model.params.map(
-            lambda p, u: p + torch.where(ok, u, torch.zeros_like(u)), updates)
-        new_opt = optim.where_ok(ok, new_opt, state.opt)
-        if trainable_cameras or trainable_intrinsics:
-            new_cam_res, new_cam_opt = _camera_adam(state, gcam, drawn, opt_cfg)
-        else:
-            new_cam_res, new_cam_opt = state.cam_res, state.cam_opt
+    the Gaussian parameters (train_gaussians.py:174-181; the viewspace port
+    is left out of the guard; a skipped step leaves moments and count as
+    they were), Adam on the camera rows ``drawn`` ([N] float, 1 where drawn;
+    each row with its own count, guarded by the camera gradients and by
+    ``iterations_cam``) and the new densify statistics ``new_aux``, all in
+    ``optim_tail.adam_guarded``: two kernel launches on the card, the
+    composition of ``optim``'s helpers on the CPU.  Returns (new_state,
+    ok)."""
+    rows = None
+    if trainable_cameras or trainable_intrinsics:
+        rows = optim_tail.Rows(state.cam_res, gcam, state.cam_opt.mu, state.cam_opt.nu,
+                               state.cam_opt.count, drawn,
+                               cam_lrs(opt_cfg, state.model.spatial_lr_scale, state.step),
+                               state.step < opt_cfg.iterations_cam)
+    new_params, new_opt, ok, new_rows = optim_tail.adam_guarded(
+        state.model.params, gparams, state.opt,
+        param_lrs(opt_cfg, state.model.spatial_lr_scale, state.step), rows)
+    new_cam_res, new_cam_opt = state.cam_res, state.cam_opt
+    if new_rows is not None:
+        new_cam_res, cam_opt = new_rows
+        new_cam_opt = CamAdamState(cam_opt.mu, cam_opt.nu, cam_opt.count)
     new_model = state.model.replace(params=new_params, aux=new_aux)
     return TrainState(new_model, new_opt, new_cam_res, new_cam_opt, state.step + 1), ok
 
@@ -229,7 +233,7 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
 
     The loss is the sum over cameras; the Gaussian gradients are divided by
     B (the camera mean), the camera-residual rows keep each camera's
-    gradient at full strength (``_camera_adam`` on the B drawn rows), and
+    gradient at full strength (the rows' Adam on the B drawn rows), and
     the densify statistics add up as over B single steps, camera by camera
     (``densify.add_stats``).  The viewspace port gets a row per camera, so
     each camera's gradient comes back on its own; the Adam moments of the
@@ -286,33 +290,6 @@ def train_step_batched(state: TrainState, cam_batch: CameraBatch, gt: GtBatch,
     metrics["num_rendered_3sigma"] = out["num_rendered_3sigma"]
     metrics["grads_ok"] = ok
     return new_state, metrics
-
-
-def _camera_adam(state: TrainState, gcam: CameraResiduals, drawn: torch.Tensor,
-                 opt_cfg: OptimizationConfig):
-    """Adam on the drawn camera rows only (every row's moments and count
-    stay as they were unless its row was drawn): one row for the
-    single-camera step, the union of the data ranks' rows for the mesh step
-    (the JAX package's dense-row update, data_parallel.py:107-138)."""
-    do_cam = optim.grads_are_finite(gcam) & (state.step < opt_cfg.iterations_cam)
-    clrs = cam_lrs(opt_cfg, state.model.spatial_lr_scale, state.step)
-    sel = (drawn * do_cam.to(torch.float32))[:, None] > 0
-    count = state.cam_opt.count + sel[:, 0].to(torch.int32)
-    cnt = torch.clamp(count, min=1).to(torch.float32)[:, None]
-    b1, b2, eps = 0.9, 0.999, 1e-15
-    c1 = 1 - torch.pow(b1, cnt)
-    c2 = 1 - torch.pow(b2, cnt)
-    mus, nus, ress = {}, {}, {}
-    for name in CameraResiduals.names():
-        mu, nu = getattr(state.cam_opt.mu, name), getattr(state.cam_opt.nu, name)
-        g, res = getattr(gcam, name), getattr(state.cam_res, name)
-        lr = getattr(clrs, name)
-        mus[name] = torch.where(sel, b1 * mu + (1 - b1) * g, mu)
-        nus[name] = torch.where(sel, b2 * nu + (1 - b2) * g ** 2, nu)
-        step_row = -lr * (mus[name] / c1) / (torch.sqrt(nus[name] / c2) + eps)
-        ress[name] = res + torch.where(sel, step_row, torch.zeros_like(step_row))
-    return (CameraResiduals(**ress),
-            CamAdamState(CameraResiduals(**mus), CameraResiduals(**nus), count))
 
 
 def densify_step(state: TrainState, samples: torch.Tensor, extent: float, *,
